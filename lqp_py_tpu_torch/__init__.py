@@ -1,0 +1,23 @@
+"""lqp_py_tpu_torch — the PyTorch / CUDA port of lqp_py_tpu.
+
+A second package beside the JAX one, held against it by the parity tests
+(tests/test_torch_*.py).  Ported so far: the forward box-QP ADMM solve,
+direct (``solve_box_qp``) and prepared (``prepare_box_qp`` +
+``solve_box_qp_prepared``).  Its one kernel, the 128x128 SWEEP leaf of the
+SPD inverse, is CUDA C++ for Hopper (``csrc/``), built with nvcc on first
+use; on a CPU tensor its plain PyTorch version runs instead.
+"""
+
+from lqp_py_tpu_torch.config import BoxQPConfig, box_qp_control
+from lqp_py_tpu_torch.types import BoxQPSolution
+from lqp_py_tpu_torch.models.box_qp import (
+    BoxQPPrepared,
+    prepare_box_qp,
+    solve_box_qp,
+    solve_box_qp_prepared,
+)
+
+__all__ = [
+    "BoxQPConfig", "box_qp_control", "BoxQPSolution", "BoxQPPrepared",
+    "solve_box_qp", "prepare_box_qp", "solve_box_qp_prepared",
+]

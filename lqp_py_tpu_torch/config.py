@@ -1,0 +1,124 @@
+"""Solver configuration, field for field the same as ``lqp_py_tpu.config``.
+
+``BoxQPConfig`` keeps the JAX package's field names, defaults and
+construction checks, so one configuration means the same solve in both
+packages (tests/test_torch_package.py holds the two together).  The
+reasoning behind each default is documented on the JAX side
+(lqp_py_tpu/config.py).  The options whose slice is not ported yet
+(``polish``, ``acceleration``, ``use_pallas_step``,
+``kkt_solver="cholesky"``) are accepted here and rejected by the solver.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+
+def _check_interval_default(n_x: int) -> int:
+    # Reference heuristic max(round(sqrt(n_x)/10)*10, 1), capped at 4: a
+    # check is cheap next to an iteration, and the expected overshoot past
+    # convergence is cs/2 iterations.
+    return max(min(round(math.sqrt(n_x) / 10) * 10, 4), 1)
+
+
+def _check_acceleration(m: int) -> None:
+    if m < 0:
+        raise ValueError(
+            f"acceleration must be >= 0 (type-II AA window size), got {m}; "
+            f"SCS's negative acceleration_lookback selects type-I AA, which "
+            f"is not implemented — pass the window size itself")
+
+
+@dataclasses.dataclass(frozen=True)
+class BoxQPConfig:
+    """Configuration for the batched box-QP ADMM solver."""
+
+    max_iters: int = 10_000
+    eps_abs: float = 1e-3
+    eps_rel: float = 1e-3
+    #: Residual-check interval; ``None`` -> ``_check_interval_default``.
+    check_solved: Optional[int] = None
+    #: ADMM penalty; ``None`` -> per-element auto:
+    #: rho_scale * ||D Q D||_F / sqrt(n_x).
+    rho: Optional[float] = None
+    rho_scale: float = 0.5
+    rho_min: float = 1e-6
+    rho_max: float = 1e6
+    adaptive_rho: bool = True
+    adaptive_rho_tol: float = 5.0
+    #: First adaptive-rho update / update spacing, in iterations.
+    adaptive_rho_iter: int = 25
+    adaptive_rho_max_iter: int = 1000
+    adaptive_rho_threshold: float = 1e-5
+    #: Over-relaxation (x_hat = alpha*x + (1-alpha)*z); 1.0 is the plain
+    #: iteration.
+    alpha: float = 1.6
+    verbose: bool = False
+    scale: bool = True
+    #: Scaling blend factor; ``None`` -> per-element auto from D quantiles.
+    beta: Optional[float] = None
+    unroll: bool = False
+    #: Solve with 0.5*(Q + Q^T); turn off for exactly symmetric inputs to
+    #: save a full (B, n, n) pass.
+    symmetrize: bool = True
+    #: Backward mode: 'fixed_point' | 'kkt' (unroll=True uses autodiff).
+    backward: str = "fixed_point"
+    #: KKT solve strategy: 'inverse' (one GEMV against the reduced KKT
+    #: inverse per iteration) or 'cholesky' (triangular solves).
+    kkt_solver: str = "inverse"
+    unroll_iters: Optional[int] = None
+    backward_reg: float = 1e-8
+    polish: bool = False
+    detect_infeasibility: bool = True
+    eps_infeas: float = 1e-5
+    #: K > 0 returns the last K residual checks as ``[iteration, max
+    #: primal, max dual]`` rows in ``solution.residual_trace``.
+    residual_trace: int = 0
+    use_pallas_step: bool = False
+    acceleration: int = 0
+    aa_safeguard: float = 2.0
+    aa_reg: float = 1e-8
+    aa_max_weight: float = 1e3
+
+    def __post_init__(self):
+        if not (0.0 < self.alpha < 2.0):
+            raise ValueError(
+                f"alpha must be in (0, 2) for ADMM convergence, got "
+                f"{self.alpha}")
+        if self.acceleration and self.use_pallas_step:
+            raise ValueError(
+                "acceleration requires use_pallas_step=False (the fused "
+                "kernel's in-VMEM iteration cannot carry the AA history)")
+        if self.acceleration and self.unroll:
+            raise ValueError(
+                "acceleration is not implemented for the unrolled "
+                "(differentiate-through-iterations) path; use the implicit "
+                "backward modes with acceleration, or unroll without it")
+        _check_acceleration(self.acceleration)
+        if self.polish and self.unroll:
+            raise ValueError(
+                "polish is not implemented for the unrolled "
+                "(differentiate-through-iterations) path — it returns the "
+                "bare iterate; use the implicit backward modes with polish")
+
+    def resolved_check_interval(self, n_x: int) -> int:
+        cs = self.check_solved
+        if cs is None:
+            cs = _check_interval_default(n_x)
+        return max(int(cs), 1)
+
+    def resolved_adaptive_interval(self, n_x: int) -> int:
+        # The adaptive-rho interval is a multiple of the check interval.
+        cs = self.resolved_check_interval(n_x)
+        it = round(self.adaptive_rho_iter / cs) * cs
+        return max(it, 1)
+
+
+def box_qp_control(**kwargs) -> BoxQPConfig:
+    """Dict-style constructor mirroring the reference's ``box_qp_control``.
+
+    Unknown keys raise immediately instead of being silently ignored.
+    """
+    return BoxQPConfig(**kwargs)

@@ -1,0 +1,87 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+``load_library()`` compiles every ``lqp_py_tpu_torch/csrc/*.cu`` into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds) under ``build/lqp_py_tpu_torch/`` at the repository root.
+The file name carries a hash of the sources and flags: an edited source
+builds anew, an unchanged one is loaded as it is.  Nothing here runs at
+import time, so machines without ``nvcc`` can import the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "lqp_py_tpu_torch"
+#: Where the CUDA toolkit puts nvcc when it is not on PATH.
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and DEFAULT_NVCC.exists():
+        path = str(DEFAULT_NVCC)
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "lqp_py_tpu_torch need the CUDA toolkit to build")
+    return path
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"liblqp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build under a temporary name and rename: concurrent processes never
+    # load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    path = library_path()
+    if not path.exists():
+        _compile(path)
+    lib = ctypes.CDLL(str(path))
+    fn = lib.sweep_spd_inverse_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib

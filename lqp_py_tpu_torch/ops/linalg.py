@@ -1,0 +1,220 @@
+"""Batched KKT factorization and solves (counterpart of
+``lqp_py_tpu.ops.linalg``, inverse mode).
+
+The KKT operator
+
+    M = [[H, A^T],
+         [A, 0  ]],   H = Q + rho*I  (SPD)
+
+is reduced by a Schur complement on ``Hinv = H^-1``:
+
+    S    = A H^-1 A^T            (n_eq x n_eq, tiny in practice)
+    x    = P r + W S^-1 b,       P = H^-1 - W S^-1 W^T,  W = H^-1 A^T
+    nu   = S^-1 (W^T r - b)
+
+P is never built: an ADMM iteration is one dense ``Hinv`` GEMV plus two
+rank-``n_eq`` corrections.
+
+``spd_inverse_fast`` picks the inverse by dtype, on every device: float64
+takes the Cholesky inverse (as the JAX package does wherever its Pallas
+kernel cannot run), float32 takes the block Schur-complement recursion of
+GEMMs whose 128x128 diagonal leaves go to ``sweep_spd_inverse`` — the CUDA
+kernel for a CUDA tensor, its plain version for a CPU tensor, so the CPU
+tests run the algorithm the card runs.  The recursion GEMMs are
+``torch.matmul``; the solver entry points run them with TF32 off
+(ops/precision.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from lqp_py_tpu_torch.ops.kernels.spd_inverse import LEAF, sweep_spd_inverse
+
+#: Below this size the batch-major Gauss-Jordan replaces the 128-padded
+#: sweep leaf (a (B, n, n) inverse at n <= 64 would otherwise pad to a
+#: full 128x128 sweep).
+_GJ_MAX = 64
+
+
+def _mv(M, v):
+    """Batched matrix-vector product ``M @ v`` for (B, i, j) x (B, j)."""
+    return (M @ v[..., None])[..., 0]
+
+
+def chol_solve(L, rhs):
+    """Solve ``(L L^T) x = rhs`` for batched lower-triangular ``L``.
+
+    ``rhs`` is ``(..., n)`` or ``(..., n, k)``.
+    """
+    vec = rhs.ndim == L.ndim - 1
+    if vec:
+        rhs = rhs[..., None]
+    y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    return x[..., 0] if vec else x
+
+
+def chol_inverse(L):
+    """Explicit SPD inverse ``H^-1 = L^-T L^-1`` from a lower Cholesky
+    factor: a triangular solve against the identity, then one GEMM."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return Linv.mT @ Linv
+
+
+def spd_inverse(H):
+    return chol_inverse(torch.linalg.cholesky(H))
+
+
+def _sweep_leaf(H):
+    return sweep_spd_inverse(H.contiguous())
+
+
+def _gj_inverse_small(H):
+    """SPD inverse for small n by the symmetric sweep recurrence, batch
+    last so that each pivot step is one vectorized rank-1 pass over
+    (n, n, B).  Written as ``u = row - e_k``, which needs ``A[k,k] -= 2``
+    after the rank-1 update."""
+    n = H.shape[-1]
+    X = H.movedim(0, -1).clone()                     # (n, n, B)
+    iota = torch.arange(n, device=H.device)
+    for k in range(n):
+        onehot = (iota == k).to(H.dtype)[:, None]   # (n, 1)
+        row = X[k]                                  # (n, B)
+        u = row - onehot
+        v = u / row[k]
+        X = X - u[:, None, :] * v[None, :, :]
+        X[k, k] -= 2.0
+    return -X.movedim(-1, 0)
+
+
+def _schur_inverse(H, leaf=_sweep_leaf):
+    """Recursive SPD inverse; H is (B, n, n) with n a multiple of LEAF.
+
+    Splits at a multiple of LEAF, inverts the leading block and its Schur
+    complement recursively, and assembles the inverse with GEMMs; ``leaf``
+    inverts the 128x128 diagonal blocks."""
+    n = H.shape[-1]
+    if n <= LEAF:
+        return leaf(H)
+    h = (n // LEAF // 2) * LEAF
+    A = H[..., :h, :h]
+    Bm = H[..., :h, h:]
+    C = H[..., h:, h:]
+    Ai = _schur_inverse(A, leaf)
+    T = Ai @ Bm                                   # Ai B        (h, n-h)
+    S = C - Bm.mT @ T                             # C - B^T Ai B
+    Si = _schur_inverse(S, leaf)
+    U = T @ Si                                    # Ai B Si     (h, n-h)
+    TL = Ai + U @ T.mT                            # Ai + U (Ai B)^T
+    top = torch.cat([TL, -U], dim=-1)
+    bot = torch.cat([-U.mT, Si], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def spd_inverse_fast(H, equilibrate: bool = True):
+    """SPD inverse of (B, n, n).
+
+    float64: Cholesky.  float32: the Schur recursion with sweep leaves
+    (``n`` padded to a multiple of 128 with an identity block, which is
+    exact: the inverse of blockdiag(H, I) is blockdiag(H^-1, I)), or the
+    batch-major Gauss-Jordan for n <= 64.
+
+    With ``equilibrate=True`` the input is Jacobi-equilibrated first
+    (``H' = D H D`` with ``D = diag(H)^-1/2``) and the result unscaled as
+    ``H^-1 = D H'^-1 D``; a fixed-order float32 sweep loses all accuracy on
+    a diagonal with a wide dynamic range.  Callers whose operand is
+    already equilibrated (the box-QP solver Jacobi-scales Q) pass False."""
+    if H.dtype != torch.float32:
+        return spd_inverse(H)
+    if equilibrate:
+        diag = H.diagonal(dim1=-2, dim2=-1)
+        d = torch.rsqrt(torch.clamp(diag, min=1e-30))   # (B, n)
+        Hs = H * d[..., :, None] * d[..., None, :]
+    else:
+        d = None
+        Hs = H
+    n = H.shape[-1]
+    if n <= _GJ_MAX:
+        Hi = _gj_inverse_small(Hs)
+    else:
+        n_pad = -(-n // LEAF) * LEAF
+        pad = n_pad - n
+        if pad:
+            Hp = H.new_zeros((H.shape[0], n_pad, n_pad))
+            Hp[:, :n, :n] = Hs
+            Hp[:, n:, n:] = torch.eye(pad, dtype=H.dtype, device=H.device)
+            Hi = _schur_inverse(Hp)[:, :n, :n]
+        else:
+            Hi = _schur_inverse(Hs)
+    if d is None:
+        return Hi
+    return Hi * d[..., :, None] * d[..., None, :]
+
+
+@dataclasses.dataclass
+class KKTFactors:
+    """Factorization state of the reduced KKT operator (inverse mode).
+
+    ``Hinv = (Q + rho I)^-1`` plus the low-rank pieces ``W = H^-1 A^T``,
+    ``WS = W S^-1`` and ``Sinv = (A H^-1 A^T)^-1``; the reduced inverse
+    ``P = Hinv - WS W^T`` is applied implicitly.  ``W``/``WS``/``Sinv`` are
+    None when n_eq == 0.
+    """
+
+    Hinv: torch.Tensor
+    W: Optional[torch.Tensor] = None
+    Sinv: Optional[torch.Tensor] = None
+    WS: Optional[torch.Tensor] = None
+
+
+def factorize_kkt(Q, rho, A, *, equilibrate: bool = True) -> KKTFactors:
+    """Factorize ``M = [[Q + rho I, A^T], [A, 0]]`` (batched).
+
+    Q:   (B, n, n) SPD
+    rho: (B,) or scalar — per-element ADMM penalty.  ``None`` means Q is
+      already the shifted operand ``H`` (``scale_problem_h``).
+    A:   (B, m, n) or None
+    equilibrate: passed to ``spd_inverse_fast``.
+    """
+    if rho is None:
+        H = Q
+    else:
+        rho = torch.as_tensor(rho, dtype=Q.dtype, device=Q.device)
+        rho_diag = (rho[..., None, None] if rho.ndim == 1 else rho)
+        H = Q + rho_diag * torch.eye(Q.shape[-1], dtype=Q.dtype,
+                                     device=Q.device)
+    Hinv = spd_inverse_fast(H, equilibrate=equilibrate)
+    if A is None:
+        return KKTFactors(Hinv=Hinv)
+    W = Hinv @ A.mT                                 # (B, n, m)
+    S = A @ W                                       # (B, m, m)
+    Sinv = spd_inverse(S)
+    WS = W @ Sinv
+    return KKTFactors(Hinv=Hinv, W=W, Sinv=Sinv, WS=WS)
+
+
+def kkt_apply(f: KKTFactors, r, b):
+    """Apply the factored KKT inverse: solve M [x; nu] = [r; b].
+
+    r: (B, n); b: (B, m) or None.  Returns (x, nu).
+    """
+    y = _mv(f.Hinv, r)
+    if f.W is None:
+        return y, None
+    nu = _mv(f.Sinv, _mv(f.W.mT, r) - b)
+    return y - _mv(f.W, nu), nu
+
+
+def kkt_step_operator(f: KKTFactors, b):
+    """``(Hinv, q)`` such that the ADMM x-update is
+    ``x = Hinv r - WS (W^T r) + q`` with the constant ``q = W Sinv b``."""
+    if f.W is None or b is None:
+        q = f.Hinv.new_zeros(f.Hinv.shape[:-1])
+    else:
+        q = _mv(f.W, _mv(f.Sinv, b))
+    return f.Hinv, q

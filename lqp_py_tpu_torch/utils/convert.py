@@ -1,0 +1,75 @@
+"""State carried across from numpy, and so from the JAX package.
+
+The solver has no weights: the state it carries is problem data, a
+``BoxQPPrepared`` (scaled operand, scaled constraints, scaling vectors,
+rho0 and the KKT factors) and a warm-start ``BoxQPSolution``.  These
+functions take that state as numpy arrays — for a JAX object, the
+``np.asarray`` of each of its fields, made by the caller — and return the
+port's tensors and objects.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from lqp_py_tpu_torch.models.box_qp import BoxQPPrepared
+from lqp_py_tpu_torch.ops.linalg import KKTFactors
+from lqp_py_tpu_torch.types import BoxQPSolution
+from lqp_py_tpu_torch.utils.generators import QPData
+
+
+def _t(a, device, dtype=None) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def problem_from_numpy(Q, p, A=None, b=None, lb=None, ub=None, *,
+                       device="cpu", dtype: Optional[torch.dtype] = None
+                       ) -> QPData:
+    """Problem data as tensors on ``device`` (in ``dtype`` if given, else
+    in each array's own)."""
+    return QPData(*(_t(a, device, dtype) for a in (Q, p, A, b, lb, ub)))
+
+
+def _factors_from_numpy(f: Mapping, device) -> KKTFactors:
+    for name in ("P", "L"):
+        if f.get(name) is not None:
+            raise ValueError(
+                f"KKT factors carry {name}: only inverse-mode factors "
+                f"without a materialized P are ported")
+    return KKTFactors(Hinv=_t(f["Hinv"], device), W=_t(f.get("W"), device),
+                      Sinv=_t(f.get("Sinv"), device),
+                      WS=_t(f.get("WS"), device))
+
+
+def prepared_from_numpy(d: Mapping, device="cpu") -> BoxQPPrepared:
+    """A ``BoxQPPrepared`` from the fields of one (``H``, ``As``, ``bs``,
+    ``lbs``, ``ubs``, ``D``, ``E``, ``rho0``, and ``factors`` as a mapping
+    of ``KKTFactors`` fields; a ``mode`` other than 'inverse' raises)."""
+    if d.get("mode", "inverse") != "inverse":
+        raise ValueError(f"prepared with kkt_solver={d['mode']!r}; only "
+                         f"'inverse' is ported")
+    return BoxQPPrepared(
+        H=_t(d["H"], device), As=_t(d.get("As"), device),
+        bs=_t(d.get("bs"), device), lbs=_t(d["lbs"], device),
+        ubs=_t(d["ubs"], device), D=_t(d["D"], device),
+        E=_t(d.get("E"), device), rho0=_t(d["rho0"], device),
+        factors=_factors_from_numpy(d["factors"], device))
+
+
+def solution_from_numpy(d: Mapping, device="cpu") -> BoxQPSolution:
+    """A ``BoxQPSolution`` from the fields of one (``iterations`` becomes a
+    Python int)."""
+    return BoxQPSolution(
+        x=_t(d["x"], device), z=_t(d["z"], device), u=_t(d["u"], device),
+        lams=_t(d["lams"], device), nus=_t(d.get("nus"), device),
+        rho=_t(d["rho"], device), iterations=int(d["iterations"]),
+        primal_residual=_t(d["primal_residual"], device),
+        dual_residual=_t(d["dual_residual"], device),
+        converged=_t(d["converged"], device),
+        primal_infeasible=_t(d.get("primal_infeasible"), device),
+        residual_trace=_t(d.get("residual_trace"), device))

@@ -1,0 +1,76 @@
+"""Deterministic QP problem generators (counterpart of
+``lqp_py_tpu.utils.generators``).
+
+The distributions are the JAX package's; the streams are not: a
+``torch.Generator`` seeded with the same integer draws other numbers than
+``jax.random``.  Tests that compare the two packages make their data once
+(with numpy or the JAX generators) and hand it to both.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
+
+
+class QPData(NamedTuple):
+    Q: torch.Tensor
+    p: torch.Tensor
+    A: Optional[torch.Tensor]
+    b: Optional[torch.Tensor]
+    lb: torch.Tensor
+    ub: torch.Tensor
+
+
+def create_qp_data(n_x: int, n_batch: int, n_samples: Optional[int] = None,
+                   seed: int = 0, dtype=torch.float32,
+                   device="cpu") -> QPData:
+    """Well-conditioned random box QPs: SPD Q = L'L/n_samples, a
+    sum-to-one equality row, box bounds uniform in +/-[1, 2]."""
+    if n_samples is None:
+        n_samples = 2 * n_x
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(dtype=dtype, device=device)
+    L = torch.randn((n_batch, n_samples, n_x), generator=g, **kw)
+    with highest_matmul_precision():
+        Q = (L.mT @ L) / n_samples
+    del L
+    p = torch.randn((n_batch, n_x), generator=g, **kw)
+    A = torch.ones((n_batch, 1, n_x), **kw)
+    b = torch.ones((n_batch, 1), **kw)
+    lb = -(1.0 + torch.rand((n_batch, n_x), generator=g, **kw))
+    ub = 1.0 + torch.rand((n_batch, n_x), generator=g, **kw)
+    return QPData(Q=Q, p=p, A=A, b=b, lb=lb, ub=ub)
+
+
+@highest_matmul_precision()
+def kkt_residuals(Q, p, A, b, lb, ub, x, lams, nus):
+    """Solver-independent optimality oracle: stationarity, feasibility and
+    complementarity residuals of a box-QP solution (infinity norms).
+
+    lams is (B, 2n) = [lambda_lb; lambda_ub] (both >= 0)."""
+    n = x.shape[-1]
+    lam_lb = lams[..., :n]
+    lam_ub = lams[..., n:]
+    stat = (Q @ x[..., None])[..., 0] + p - lam_lb + lam_ub
+    if A is not None:
+        stat = stat + (A.mT @ nus[..., None])[..., 0]
+        eq = ((A @ x[..., None])[..., 0] - b).abs().amax(dim=-1)
+    else:
+        eq = x.new_zeros(x.shape[0])
+    finite_lb = torch.isfinite(lb)
+    finite_ub = torch.isfinite(ub)
+    zero = x.new_zeros(())
+    viol_lb = torch.where(finite_lb, torch.clamp(lb - x, min=0.0), zero)
+    viol_ub = torch.where(finite_ub, torch.clamp(x - ub, min=0.0), zero)
+    comp_lb = torch.where(finite_lb, (lam_lb * (x - lb)).abs(), zero)
+    comp_ub = torch.where(finite_ub, (lam_ub * (ub - x)).abs(), zero)
+    return {
+        "stationarity": stat.abs().amax(dim=-1),
+        "eq": eq,
+        "bound_violation": torch.maximum(viol_lb, viol_ub).amax(dim=-1),
+        "complementarity": torch.maximum(comp_lb, comp_ub).amax(dim=-1),
+    }

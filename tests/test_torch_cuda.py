@@ -1,0 +1,70 @@
+"""The port's CUDA kernel on the card.
+
+Every test here needs an NVIDIA GPU and skips without one (the kernel is
+CUDA C++ with no CPU mode; its plain version is held against the JAX
+package in tests/test_torch_linalg.py).  This file imports no JAX, so it
+runs on a machine that has none:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from lqp_py_tpu_torch import BoxQPConfig, solve_box_qp
+from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+from lqp_py_tpu_torch.utils.generators import create_qp_data
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the SWEEP-leaf kernel has no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+def _leaf_stack(B, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((B, 256, 128), generator=g, device=device,
+                    dtype=torch.float64)
+    return ((a.mT @ a) / 256 + torch.eye(128, dtype=torch.float64,
+                                         device=device)).float()
+
+
+@pytest.mark.parametrize("B", [1, 7, 128])
+def test_sweep_kernel_matches_plain_version(cuda, B):
+    H = _leaf_stack(B, cuda)
+    before = sk.LAUNCHES
+    out = sk.sweep_spd_inverse(H)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + 1
+    ref = sk.sweep_spd_inverse_ref(H)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    eye = torch.eye(128, dtype=torch.float64, device=cuda)
+    assert (H.double() @ out.double() - eye).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: _leaf_stack(2, d).double(),
+    lambda d: _leaf_stack(2, d).mT,
+    lambda d: _leaf_stack(2, d)[:, :64, :64],
+], ids=["float64", "non-contiguous", "wrong-size"])
+def test_sweep_kernel_rejects_what_it_does_not_take(cuda, make):
+    before = sk.LAUNCHES
+    with pytest.raises(ValueError):
+        sk.sweep_spd_inverse(make(cuda))
+    assert sk.LAUNCHES == before
+
+
+def test_solve_on_cuda_matches_cpu(cuda):
+    data = create_qp_data(200, 8, seed=3)
+    cfg = BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False)
+    cpu = solve_box_qp(*data, config=cfg)
+    before = sk.LAUNCHES
+    gpu = solve_box_qp(*(t.to(cuda) for t in data), config=cfg)
+    assert sk.LAUNCHES - before >= 2           # two 128 leaves at n=256
+    assert bool(gpu.converged.all()) and bool(cpu.converged.all())
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4

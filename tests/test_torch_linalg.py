@@ -1,0 +1,155 @@
+"""Parity of the port's linear algebra (lqp_py_tpu_torch.ops.linalg and
+the SWEEP leaf's plain version) with the JAX package.
+
+Inputs are made with numpy from a seed and handed to both packages.  The
+JAX sweep leaf runs in Pallas interpret mode, as tests/test_linalg.py runs
+it on the CPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lqp_py_tpu.ops import linalg as jlin
+from lqp_py_tpu.ops.pallas import spd_inverse as jsw
+from lqp_py_tpu_torch.ops import linalg as tlin
+from lqp_py_tpu_torch.ops.kernels.spd_inverse import sweep_spd_inverse_ref
+
+
+def _spd(seed, b, n, dtype=np.float64):
+    """SPD stack as tests/test_linalg.py makes it: 0.01 a'a + I."""
+    a = np.random.default_rng(seed).standard_normal((b, n, n)) * 0.1
+    return (np.einsum("bki,bkj->bij", a, a) + np.eye(n)).astype(dtype)
+
+
+def _wishart(seed, b, n, shift=0.5):
+    L = np.random.default_rng(seed).standard_normal((b, 2 * n, n))
+    return np.einsum("bsi,bsj->bij", L, L) / (2 * n) + shift * np.eye(n)
+
+
+def test_sweep_leaf_plain_matches_jax_and_numpy():
+    # The bounds of tests/test_linalg.py's leaf test (f32 sweep vs f64).
+    H = _spd(0, 4, 128, np.float32)
+    ours = sweep_spd_inverse_ref(torch.from_numpy(H)).numpy()
+    theirs = np.asarray(jsw.sweep_spd_inverse(jnp.asarray(H),
+                                              interpret=True))
+    ref = np.linalg.inv(H.astype(np.float64))
+    np.testing.assert_allclose(ours, ref, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(ours, theirs, rtol=2e-4, atol=2e-5)
+
+
+def test_sweep_leaf_plain_float64_is_exact_to_roundoff():
+    H = _spd(1, 3, 128)
+    ours = sweep_spd_inverse_ref(torch.from_numpy(H)).numpy()
+    np.testing.assert_allclose(ours, np.linalg.inv(H), rtol=1e-11,
+                               atol=1e-13)
+
+
+def test_schur_inverse_matches_jax_recursion():
+    # n=200 padded to 256 with an identity block: two 128 leaves.
+    n, n_pad = 200, 256
+    H = _spd(2, 2, n, np.float32)
+    Hp = np.zeros((2, n_pad, n_pad), np.float32)
+    Hp[:, :n, :n] = H
+    Hp[:, n:, n:] = np.eye(n_pad - n, dtype=np.float32)
+
+    ours = tlin._schur_inverse(torch.from_numpy(Hp))[:, :n, :n].numpy()
+
+    import functools
+    ee = functools.partial(jnp.einsum, precision="highest")
+    orig = jsw.sweep_spd_inverse
+    jsw.sweep_spd_inverse = lambda X, **kw: orig(X, interpret=True)
+    try:
+        theirs = np.asarray(jlin._schur_inverse(jnp.asarray(Hp), ee))
+    finally:
+        jsw.sweep_spd_inverse = orig
+    theirs = theirs[:, :n, :n]
+
+    ref = np.linalg.inv(H.astype(np.float64))
+    np.testing.assert_allclose(ours, ref, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(ours, theirs, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("n,dtype,equilibrate,rtol", [
+    (40, torch.float32, True, 2e-4),     # batch-major Gauss-Jordan
+    (200, torch.float32, True, 5e-4),    # padded recursion + sweep leaves
+    (256, torch.float32, False, 5e-4),   # recursion, no padding
+    (200, torch.float64, True, 1e-10),   # Cholesky
+])
+def test_spd_inverse_fast_dispatch(n, dtype, equilibrate, rtol, monkeypatch):
+    leaf_calls = []
+    orig = tlin.sweep_spd_inverse
+    monkeypatch.setattr(tlin, "sweep_spd_inverse",
+                        lambda X: leaf_calls.append(X.shape) or orig(X))
+    H = _wishart(3, 3, n)
+    Hi = tlin.spd_inverse_fast(torch.tensor(H, dtype=dtype),
+                               equilibrate=equilibrate)
+    assert Hi.dtype == dtype
+    np.testing.assert_allclose(Hi.double().numpy(), np.linalg.inv(H),
+                               rtol=rtol, atol=rtol / 10)
+    # float32 above 64 goes through the 128x128 leaves; nothing else does.
+    expect = (n // 128 + (n % 128 > 0)) if (dtype == torch.float32
+                                            and n > 64) else 0
+    assert len(leaf_calls) == expect
+    assert all(s[1:] == (128, 128) for s in leaf_calls)
+
+
+@pytest.mark.parametrize("n,B,seed", [(4, 3, 0), (10, 16, 1), (64, 5, 2)])
+def test_gj_inverse_small_matches_jax(n, B, seed):
+    H = _wishart(seed, B, n)
+    ours = tlin._gj_inverse_small(torch.from_numpy(H)).numpy()
+    theirs = np.asarray(jlin._gj_inverse_small(jnp.asarray(H)))
+    np.testing.assert_allclose(ours, theirs, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(ours, np.linalg.inv(H), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("with_eq", [True, False])
+def test_factorize_kkt_and_apply_match_jax(with_eq):
+    B, n, m = 3, 40, 5
+    rng = np.random.default_rng(4)
+    Q = _spd(5, B, n)
+    A = rng.standard_normal((B, m, n)) if with_eq else None
+    rho = np.linspace(0.5, 2.0, B)
+    r = rng.standard_normal((B, n))
+    b = rng.standard_normal((B, m)) if with_eq else None
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    j = lambda a: None if a is None else jnp.asarray(a)  # noqa: E731
+
+    f_t = tlin.factorize_kkt(t(Q), t(rho), t(A))
+    f_j = jlin.factorize_kkt(j(Q), j(rho), j(A), mode="inverse")
+    x_t, nu_t = tlin.kkt_apply(f_t, t(r), t(b))
+    x_j, nu_j = jlin.kkt_apply(f_j, j(r), j(b))
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j),
+                               rtol=1e-9, atol=1e-11)
+    _, q_t = tlin.kkt_step_operator(f_t, t(b))
+    _, q_j = jlin.kkt_step_operator(f_j, j(b))
+    np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j),
+                               rtol=1e-9, atol=1e-11)
+    if with_eq:
+        np.testing.assert_allclose(nu_t.numpy(), np.asarray(nu_j),
+                                   rtol=1e-9, atol=1e-11)
+        # The solve satisfies M [x; nu] = [r; b].
+        H = Q + rho[:, None, None] * np.eye(n)
+        top = np.einsum("bij,bj->bi", H, x_t.numpy()) + np.einsum(
+            "bmi,bm->bi", A, nu_t.numpy())
+        np.testing.assert_allclose(top, r, rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(np.einsum("bmi,bi->bm", A, x_t.numpy()),
+                                   b, rtol=1e-8, atol=1e-10)
+    else:
+        assert nu_t is None and nu_j is None
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_chol_solve_matches_jax(k):
+    H = _wishart(6, 2, 30)
+    rng = np.random.default_rng(7)
+    rhs = rng.standard_normal((2, 30) if k is None else (2, 30, k))
+    ours = tlin.chol_solve(torch.linalg.cholesky(torch.from_numpy(H)),
+                           torch.from_numpy(rhs)).numpy()
+    theirs = np.asarray(jlin.chol_solve(jnp.linalg.cholesky(jnp.asarray(H)),
+                                        jnp.asarray(rhs)))
+    np.testing.assert_allclose(ours, theirs, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ours, np.linalg.solve(
+        H, rhs if k else rhs[..., None]).reshape(ours.shape), rtol=1e-10,
+        atol=1e-12)

@@ -1,0 +1,122 @@
+"""Hygiene of the PyTorch port: its configuration matches the JAX
+package's, it never imports JAX, and the SWEEP-leaf wrapper takes the plain
+version only for CPU tensors."""
+
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lqp_py_tpu import config as jcfg
+from lqp_py_tpu_torch import BoxQPConfig, box_qp_control
+from lqp_py_tpu_torch import config as tcfg
+from lqp_py_tpu_torch.ops.kernels import _build
+from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _defaults(cls):
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
+def test_config_fields_and_defaults_match_jax():
+    assert _defaults(BoxQPConfig) == _defaults(jcfg.BoxQPConfig)
+    assert box_qp_control(eps_abs=1e-5) == BoxQPConfig(eps_abs=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 10, 50, 150, 1000, 10_000])
+def test_config_intervals_match_jax(n):
+    for kw in ({}, {"check_solved": 7, "adaptive_rho_iter": 30}):
+        ours, theirs = BoxQPConfig(**kw), jcfg.BoxQPConfig(**kw)
+        assert (ours.resolved_check_interval(n)
+                == theirs.resolved_check_interval(n))
+        assert (ours.resolved_adaptive_interval(n)
+                == theirs.resolved_adaptive_interval(n))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(alpha=0.0), dict(alpha=2.0), dict(acceleration=-1),
+    dict(acceleration=2, use_pallas_step=True),
+    dict(acceleration=2, unroll=True), dict(polish=True, unroll=True),
+], ids=["alpha0", "alpha2", "negative-aa", "aa-pallas", "aa-unroll",
+        "polish-unroll"])
+def test_config_checks_raise_like_jax(kw):
+    with pytest.raises(ValueError) as theirs:
+        jcfg.BoxQPConfig(**kw)
+    with pytest.raises(ValueError, match=re.escape(str(theirs.value))):
+        BoxQPConfig(**kw)
+    with pytest.raises(TypeError):
+        box_qp_control(not_a_knob=1)
+    assert tcfg._check_interval_default(1000) == 4
+
+
+def test_vector_layout_helpers_match_jax():
+    import jax.numpy as jnp
+    from lqp_py_tpu import types as jtypes
+    from lqp_py_tpu_torch import types as ttypes
+
+    v3 = torch.arange(6.0).reshape(2, 3, 1)
+    v2 = ttypes.as_vector(v3)
+    assert tuple(v2.shape) == (2, 3) and ttypes.as_vector(None) is None
+    assert torch.equal(ttypes.like_layout(v2, v3), v3)
+    assert ttypes.like_layout(v2, v2) is v2
+    assert (np.asarray(jtypes.as_vector(jnp.asarray(v3.numpy())))
+            == v2.numpy()).all()
+    for bad in (torch.zeros(2, 3, 2), torch.zeros(3)):
+        with pytest.raises(ValueError):
+            ttypes.as_vector(bad)
+        with pytest.raises(ValueError):
+            jtypes.as_vector(jnp.asarray(bad.numpy()))
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, lqp_py_tpu_torch, lqp_py_tpu_torch.utils.convert; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'flax' not in sys.modules, 'flax imported'")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sweep_wrapper_takes_plain_version_on_cpu():
+    H = torch.eye(128, dtype=torch.float32).expand(3, 128, 128) * 2.0
+    before = sk.LAUNCHES
+    out = sk.sweep_spd_inverse(H)
+    assert sk.LAUNCHES == before
+    assert torch.equal(out, sk.sweep_spd_inverse_ref(H))
+    assert torch.allclose(out, 0.5 * torch.eye(128))
+
+
+def test_sweep_wrapper_refuses_other_devices():
+    H = torch.empty((2, 128, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sk.sweep_spd_inverse(H)
+
+
+def test_library_name_follows_source_content(tmp_path, monkeypatch):
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path()
+    assert first == _build.library_path()
+    src.write_text("// two\n")
+    assert _build.library_path() != first
+    assert first.parent == _build.BUILD_DIR
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load_library()
+    finally:
+        _build.load_library.cache_clear()
