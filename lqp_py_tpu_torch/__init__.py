@@ -3,9 +3,11 @@
 A second package beside the JAX one, held against it by the parity tests
 (tests/test_torch_*.py).  Ported so far: the forward box-QP ADMM solve,
 direct (``solve_box_qp``) and prepared (``prepare_box_qp`` +
-``solve_box_qp_prepared``).  Its one kernel, the 128x128 SWEEP leaf of the
-SPD inverse, is CUDA C++ for Hopper (``csrc/``), built with nvcc on first
-use; on a CPU tensor its plain PyTorch version runs instead.
+``solve_box_qp_prepared``), lock-step or with the per-element early-exit
+step (``use_pallas_step=True``).  Its two kernels, the 128x128 SWEEP leaf
+of the SPD inverse and the early-exit GEMV, are CUDA C++ for Hopper
+(``csrc/``), built with nvcc on first use; on a CPU tensor their plain
+PyTorch versions run instead.
 """
 
 from lqp_py_tpu_torch.config import BoxQPConfig, box_qp_control

@@ -5,8 +5,8 @@ construction checks, so one configuration means the same solve in both
 packages (tests/test_torch_package.py holds the two together).  The
 reasoning behind each default is documented on the JAX side
 (lqp_py_tpu/config.py).  The options whose slice is not ported yet
-(``polish``, ``acceleration``, ``use_pallas_step``,
-``kkt_solver="cholesky"``) are accepted here and rejected by the solver.
+(``polish``, ``acceleration``, ``kkt_solver="cholesky"``) are accepted here
+and rejected by the solver.
 """
 
 from __future__ import annotations

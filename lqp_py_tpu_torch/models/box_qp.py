@@ -11,7 +11,10 @@ with the JAX package's iteration, step for step: Jacobi scaling with a
 quantile-blended beta, a reduced-KKT inverse applied as one dense GEMV per
 iteration, an OSQP-style stopping test on unscaled residuals every ``cs``
 iterations, a primal-infeasibility certificate, and per-element adaptive
-rho with refactorization.  Where the JAX package traces a
+rho with refactorization.  With ``use_pallas_step`` each iteration is the
+early-exit step instead (``ops/kernels/admm_step.py``): one GEMV against
+the materialized reduced inverse ``P`` that skips converged elements,
+which stay frozen until the batch stops.  Where the JAX package traces a
 ``lax.while_loop``, this module runs a Python loop: the ``cs`` iterations
 between two residual checks are queued on the device, and each check reads
 two flags back to the host ("every element done", "some rho pending"),
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from lqp_py_tpu_torch.config import BoxQPConfig
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops import scaling as sca
+from lqp_py_tpu_torch.ops.kernels.admm_step import fused_admm_step
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import BoxQPSolution, as_vector
 
@@ -83,25 +87,64 @@ def _check_supported(config: BoxQPConfig) -> None:
     later = [name for name, on in (
         ("polish=True", config.polish),
         ("acceleration>0", config.acceleration > 0),
-        ("use_pallas_step=True", config.use_pallas_step),
         ("kkt_solver='cholesky'", config.kkt_solver == "cholesky"),
     ) if on]
     if later:
         raise NotImplementedError(
             f"lqp_py_tpu_torch does not port {', '.join(later)} yet: the "
             f"forward slice covers the inverse-mode ADMM solve; polish, "
-            f"Anderson acceleration, the fused early-exit step and the "
-            f"Cholesky KKT mode come with later slices of the port")
+            f"Anderson acceleration and the Cholesky KKT mode come with "
+            f"later slices of the port")
 
 
 #: Lane alignment of the variable axis.  The port keeps the JAX package's
-#: padding so that its iterates match step for step; padded coordinates
-#: are inert (p = 0, bounds +/-inf, identity block in H).
+#: padding (128, or 256 for the early-exit step) so that its iterates match
+#: step for step; padded coordinates are inert (p = 0, bounds +/-inf,
+#: identity block in H).  The CUDA kernels take any n.
 _ALIGN = 128
 
 
-def _padded_n(n: int) -> int:
-    return -(-n // _ALIGN) * _ALIGN
+def _padded_n(config: BoxQPConfig, n: int) -> int:
+    align = 256 if config.use_pallas_step else _ALIGN
+    return -(-n // align) * align
+
+
+def _pad_identity(M, pad):
+    """Pad (B, n, n) to (B, n+pad, n+pad) with an identity block."""
+    n = M.shape[-1]
+    out = F.pad(M, (0, pad, 0, pad))
+    out.diagonal(dim1=-2, dim2=-1)[:, n:] = 1.0
+    return out
+
+
+def _pad_factors(f: lin.KKTFactors, pad: int) -> lin.KKTFactors:
+    """Resize cached KKT factors to the solve's aligned size.
+
+    pad > 0: zero-pad P/Hinv and W/WS's rows (the padded coordinates' r is
+    identically 0).  pad < 0: slice, which is exact because the factors
+    were built from an identity-padded H with zero-padded A columns: the
+    padded block decouples, so P, Hinv and W restrict to the leading block.
+    This happens when ``prepare_box_qp`` aligned to another tile than the
+    solve-time config (e.g. prepared for the early-exit step at 256, solved
+    without it at 128)."""
+    if pad < 0:
+        def nn(a):
+            return a[..., :pad, :pad]
+
+        def nm(a):
+            return a[..., :pad, :]
+    else:
+        def nn(a):
+            return F.pad(a, (0, pad, 0, pad))
+
+        def nm(a):
+            return F.pad(a, (0, 0, 0, pad))
+
+    def opt(fn, a):
+        return None if a is None else fn(a)
+
+    return dataclasses.replace(f, P=opt(nn, f.P), Hinv=opt(nn, f.Hinv),
+                               W=opt(nm, f.W), WS=opt(nm, f.WS))
 
 
 @solver_precision
@@ -120,7 +163,7 @@ def solve_box_qp(Q, p, A=None, b=None, lb=None, ub=None,
     _check_supported(config)
     nv = as_vector(p, "p").shape[-1]
     sph, p_norm, rho0 = _prep_h(Q, p, A, b, lb, ub, config,
-                                pad=_padded_n(nv) - nv)
+                                pad=_padded_n(config, nv) - nv)
     return _solve_scaled(config, sph.p, sph.A, sph.b, sph.lb, sph.ub,
                          sph.D, sph.E, p_norm, rho0, None, warm_start,
                          H0=sph.H)
@@ -157,9 +200,10 @@ def prepare_box_qp(Q, A=None, b=None, lb=None, ub=None,
     n = Q.shape[-1]
     p0 = Q.new_zeros(Q.shape[:-1])
     sph, _p_norm, rho0 = _prep_h(Q, p0, A, b, lb, ub, config,
-                                 pad=_padded_n(n) - n)
+                                 pad=_padded_n(config, n) - n)
     factors = lin.factorize_kkt(sph.H, None, sph.A,
-                                equilibrate=not config.scale)
+                                equilibrate=not config.scale,
+                                materialize_p=config.use_pallas_step)
     return BoxQPPrepared(H=sph.H, As=sph.A, bs=sph.b, lbs=sph.lb,
                          ubs=sph.ub, D=sph.D, E=sph.E, rho0=rho0,
                          factors=factors)
@@ -185,17 +229,24 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
 
     ``H0`` is the lane-padded factorization operand ``D Q D + rho0 I``;
     ``As`` arrives with zero pad columns.  ``factors_in`` are cached
-    factors of ``H0`` (prepared solve) or None (factorize here)."""
+    factors of ``H0`` (prepared solve) or None (factorize here).  A
+    preparation made at another alignment than this solve's is resized:
+    the identity pad is extended or sliced off."""
     B, n = ps.shape
     dtype, device = ps.dtype, ps.device
     cs = config.resolved_check_interval(n)
     adaptive_interval = config.resolved_adaptive_interval(n)
     max_iters = int(config.max_iters)
-    n_pad = _padded_n(n)
+    use_pallas = bool(config.use_pallas_step)
+    n_pad = _padded_n(config, n)
     pad = n_pad - n
-    if H0.shape[-1] != n_pad:
-        raise ValueError(f"factorization operand is {H0.shape[-1]} wide, "
-                         f"the solve pads n={n} to {n_pad}")
+    built = H0.shape[-1]
+    if built < n_pad:
+        H0 = _pad_identity(H0, n_pad - built)
+        As = None if As is None else F.pad(As, (0, n_pad - built))
+    elif built > n_pad:
+        H0 = H0[:, :n_pad, :n_pad]
+        As = None if As is None else As[:, :, :n_pad]
     ps_p = F.pad(ps, (0, pad))
     lbs_p = F.pad(lbs, (0, pad), value=-math.inf)
     ubs_p = F.pad(ubs, (0, pad), value=math.inf)
@@ -210,13 +261,24 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         # put, so a downward rho move cannot push its pivots toward zero.
         Hr = H0.clone()
         Hr.diagonal(dim1=-2, dim2=-1)[:, :n] += (rho - rho0)[:, None]
-        f = lin.factorize_kkt(Hr, None, As, equilibrate=equilibrate)
+        f = lin.factorize_kkt(Hr, None, As, equilibrate=equilibrate,
+                              materialize_p=use_pallas)
         return f, _q_of(f)
 
     if factors_in is None:
-        factors = lin.factorize_kkt(H0, None, As, equilibrate=equilibrate)
+        factors = lin.factorize_kkt(H0, None, As, equilibrate=equilibrate,
+                                    materialize_p=use_pallas)
     else:
         factors = factors_in
+        if use_pallas and factors.P is None:
+            # Prepared without P but the early-exit step wants it: build it
+            # from the cached pieces (one GEMM, no refactorization).
+            factors = dataclasses.replace(
+                factors, P=factors.Hinv if factors.W is None
+                else factors.Hinv - factors.WS @ factors.W.mT)
+        dense = factors.P if factors.P is not None else factors.Hinv
+        if dense.shape[-1] != n_pad:
+            factors = _pad_factors(factors, n_pad - dense.shape[-1])
     q = _q_of(factors)
 
     # Over-relaxation collapses to alpha = 1 when no bound is finite (rho
@@ -229,8 +291,10 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
                           torch.tensor(1.0, dtype=dtype, device=device))
 
     def x_update(f, q, r):
-        # x = Hinv r - WS (W^T r) + q: one dense GEMV and two rank-n_eq
-        # corrections, without materializing P.
+        # x = P r + q where P is materialized, else x = Hinv r - WS (W^T r)
+        # + q: one dense GEMV and two rank-n_eq corrections.
+        if f.P is not None:
+            return lin._mv(f.P, r) + q
         y = lin._mv(f.Hinv, r)
         if f.W is not None:
             y = y - lin._mv(f.WS, lin._mv(f.W.mT, r))
@@ -296,14 +360,34 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
             # The first check comes after a single iteration, then every cs.
             n_inner = min(1 if it == 0 else cs, max_iters - it)
             rho_c = rho[..., None]
-            for _ in range(n_inner):
+            if use_pallas:
+                # Early-exit step, frozen where the last check found an
+                # element optimal.  alpha is static here: no collapse to 1
+                # without finite bounds (the JAX package's fused step
+                # assumes a genuinely box-constrained problem).
+                a = float(config.alpha)
                 r = -ps_p + rho_c * (z - u)
-                x = x_update(factors, q, r)
-                z_prev = z
-                xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
-                z = torch.clamp(xh + u, lbs_p, ubs_p)
-                u = u + (xh - z)
-            last_r = r
+                for _ in range(n_inner):
+                    z_prev = z
+                    x, z, u, r = fused_admm_step(
+                        factors.P, r, x, z, u, ps_p, q, lbs_p, ubs_p, rho,
+                        is_optimal, alpha=a)
+                # r now feeds the next iteration.  The r that produced x is
+                # rebuilt by inverting the (relaxed) dual update
+                # u = u_prev + (a x + (1 - a) z_prev - z); frozen elements
+                # keep the r that actually produced their x.
+                u_prev = u - (a * x + (1.0 - a) * z_prev - z)
+                last_r = torch.where(is_optimal[:, None], last_r,
+                                     -ps_p + rho_c * (z_prev - u_prev))
+            else:
+                for _ in range(n_inner):
+                    r = -ps_p + rho_c * (z - u)
+                    x = x_update(factors, q, r)
+                    z_prev = z
+                    xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
+                    z = torch.clamp(xh + u, lbs_p, ubs_p)
+                    u = u + (xh - z)
+                last_r = r
             xs_c, zs_c, us_c, zp_c = (v[:, :n] for v in (x, z, u, z_prev))
 
             # Equality duals implied by the current factored solve.

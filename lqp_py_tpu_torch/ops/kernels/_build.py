@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-``load_library()`` compiles every ``lqp_py_tpu_torch/csrc/*.cu`` into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds) under ``build/lqp_py_tpu_torch/`` at the repository root.
+``load_library()`` compiles every ``lqp_py_tpu_torch/csrc/*.cu`` (one nvcc
+per source, all started together) and links the objects into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) under ``build/lqp_py_tpu_torch/`` at the repository root.
 The file name carries a hash of the sources and flags: an edited source
 builds anew, an unchanged one is loaded as it is.  Nothing here runs at
 import time, so machines without ``nvcc`` can import the package.
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "lqp_py_tpu_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -54,23 +55,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"liblqp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the first failure's output
+    once every one of them has ended."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        results = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in procs]
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for cmd, log, rc in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+
+
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name and rename: concurrent processes never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # Build in a temporary directory and rename the library into place:
+    # concurrent processes never load a half-written one.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc, srcs = _nvcc(), _sources()
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(srcs, objs))
+        lib = Path(tmp) / out.name
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                   *map(str, objs)]])
+        os.replace(lib, out)
 
 
 @functools.cache
@@ -83,5 +101,9 @@ def load_library() -> ctypes.CDLL:
     fn = lib.sweep_spd_inverse_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.gemv_early_exit_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -162,17 +162,19 @@ class KKTFactors:
 
     ``Hinv = (Q + rho I)^-1`` plus the low-rank pieces ``W = H^-1 A^T``,
     ``WS = W S^-1`` and ``Sinv = (A H^-1 A^T)^-1``; the reduced inverse
-    ``P = Hinv - WS W^T`` is applied implicitly.  ``W``/``WS``/``Sinv`` are
-    None when n_eq == 0.
+    ``P = Hinv - WS W^T`` is applied implicitly unless materialized (``P``,
+    else None).  ``W``/``WS``/``Sinv`` are None when n_eq == 0.
     """
 
     Hinv: torch.Tensor
     W: Optional[torch.Tensor] = None
     Sinv: Optional[torch.Tensor] = None
     WS: Optional[torch.Tensor] = None
+    P: Optional[torch.Tensor] = None
 
 
-def factorize_kkt(Q, rho, A, *, equilibrate: bool = True) -> KKTFactors:
+def factorize_kkt(Q, rho, A, *, equilibrate: bool = True,
+                  materialize_p: bool = False) -> KKTFactors:
     """Factorize ``M = [[Q + rho I, A^T], [A, 0]]`` (batched).
 
     Q:   (B, n, n) SPD
@@ -180,6 +182,8 @@ def factorize_kkt(Q, rho, A, *, equilibrate: bool = True) -> KKTFactors:
       already the shifted operand ``H`` (``scale_problem_h``).
     A:   (B, m, n) or None
     equilibrate: passed to ``spd_inverse_fast``.
+    materialize_p: also build the dense reduced inverse ``P`` (the operator
+      of the early-exit step); ``P`` is ``Hinv`` itself when A is None.
     """
     if rho is None:
         H = Q
@@ -190,12 +194,13 @@ def factorize_kkt(Q, rho, A, *, equilibrate: bool = True) -> KKTFactors:
                                      device=Q.device)
     Hinv = spd_inverse_fast(H, equilibrate=equilibrate)
     if A is None:
-        return KKTFactors(Hinv=Hinv)
+        return KKTFactors(Hinv=Hinv, P=Hinv if materialize_p else None)
     W = Hinv @ A.mT                                 # (B, n, m)
     S = A @ W                                       # (B, m, m)
     Sinv = spd_inverse(S)
     WS = W @ Sinv
-    return KKTFactors(Hinv=Hinv, W=W, Sinv=Sinv, WS=WS)
+    P = Hinv - WS @ W.mT if materialize_p else None
+    return KKTFactors(Hinv=Hinv, W=W, Sinv=Sinv, WS=WS, P=P)
 
 
 def kkt_apply(f: KKTFactors, r, b):
@@ -211,10 +216,12 @@ def kkt_apply(f: KKTFactors, r, b):
 
 
 def kkt_step_operator(f: KKTFactors, b):
-    """``(Hinv, q)`` such that the ADMM x-update is
-    ``x = Hinv r - WS (W^T r) + q`` with the constant ``q = W Sinv b``."""
+    """``(dense, q)`` such that the ADMM x-update is ``x = P r + q``
+    (``dense`` is the materialized ``P``) or ``x = Hinv r - WS (W^T r) + q``
+    (``dense`` is ``Hinv``), with the constant ``q = W Sinv b``."""
+    dense = f.P if f.P is not None else f.Hinv
     if f.W is None or b is None:
-        q = f.Hinv.new_zeros(f.Hinv.shape[:-1])
+        q = dense.new_zeros(dense.shape[:-1])
     else:
         q = _mv(f.W, _mv(f.Sinv, b))
-    return f.Hinv, q
+    return dense, q

@@ -36,14 +36,12 @@ def problem_from_numpy(Q, p, A=None, b=None, lb=None, ub=None, *,
 
 
 def _factors_from_numpy(f: Mapping, device) -> KKTFactors:
-    for name in ("P", "L"):
-        if f.get(name) is not None:
-            raise ValueError(
-                f"KKT factors carry {name}: only inverse-mode factors "
-                f"without a materialized P are ported")
+    if f.get("L") is not None:
+        raise ValueError("KKT factors carry L: only inverse-mode factors "
+                         "are ported")
     return KKTFactors(Hinv=_t(f["Hinv"], device), W=_t(f.get("W"), device),
                       Sinv=_t(f.get("Sinv"), device),
-                      WS=_t(f.get("WS"), device))
+                      WS=_t(f.get("WS"), device), P=_t(f.get("P"), device))
 
 
 def prepared_from_numpy(d: Mapping, device="cpu") -> BoxQPPrepared:

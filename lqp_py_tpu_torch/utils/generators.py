@@ -1,5 +1,7 @@
 """Deterministic QP problem generators (counterpart of
-``lqp_py_tpu.utils.generators``).
+``lqp_py_tpu.utils.generators``): ``create_qp_data`` (well-conditioned
+box QPs with one sum-to-one row) and ``generate_hard_qp`` (sparse,
+ill-conditioned Q with sparse equality rows).
 
 The distributions are the JAX package's; the streams are not: a
 ``torch.Generator`` seeded with the same integer draws other numbers than
@@ -43,6 +45,34 @@ def create_qp_data(n_x: int, n_batch: int, n_samples: Optional[int] = None,
     b = torch.ones((n_batch, 1), **kw)
     lb = -(1.0 + torch.rand((n_batch, n_x), generator=g, **kw))
     ub = 1.0 + torch.rand((n_batch, n_x), generator=g, **kw)
+    return QPData(Q=Q, p=p, A=A, b=b, lb=lb, ub=ub)
+
+
+def generate_hard_qp(n_x: int, n_batch: int, prob: float = 0.15,
+                     seed: int = 0, dtype=torch.float64,
+                     device="cpu") -> QPData:
+    """Hard QP set: masked-normal Q = M'M + 1e-2 I, round(sqrt(n_x)) sparse
+    equality rows (an all-zero row gets its first entry forced on), and
+    bounds x0 -/+ U(0, 1) around a point x0 with A x0 = b."""
+    m = max(round(n_x ** 0.5), 1)
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(dtype=dtype, device=device)
+    shape_q = (n_batch, n_x, n_x)
+    M = torch.randn(shape_q, generator=g, **kw)
+    M *= torch.rand(shape_q, generator=g, **kw) < prob
+    with highest_matmul_precision():
+        Q = M.mT @ M + 1e-2 * torch.eye(n_x, **kw)
+    del M
+    p = torch.randn((n_batch, n_x), generator=g, **kw)
+    x0 = torch.randn((n_batch, n_x), generator=g, **kw)
+    A = torch.randn((n_batch, m, n_x), generator=g, **kw)
+    amask = torch.rand((n_batch, m, n_x), generator=g, **kw) < prob
+    amask[..., 0] |= ~amask.any(dim=-1)
+    A = A * amask
+    with highest_matmul_precision():
+        b = (A @ x0[..., None])[..., 0]
+    lb = x0 - torch.rand((n_batch, n_x), generator=g, **kw)
+    ub = x0 + torch.rand((n_batch, n_x), generator=g, **kw)
     return QPData(Q=Q, p=p, A=A, b=b, lb=lb, ub=ub)
 
 

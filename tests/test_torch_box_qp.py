@@ -20,6 +20,8 @@ from lqp_py_tpu.utils.generators import create_qp_data, generate_hard_qp
 import lqp_py_tpu_torch as T
 from lqp_py_tpu_torch.models import box_qp as tbox
 from lqp_py_tpu_torch.ops import linalg as tlin
+from lqp_py_tpu_torch.utils.generators import (
+    generate_hard_qp as generate_hard_qp_t)
 from lqp_py_tpu_torch.utils.convert import (prepared_from_numpy,
                                             problem_from_numpy,
                                             solution_from_numpy)
@@ -185,6 +187,18 @@ def test_prepared_solve_equals_direct_solve(dtype):
     assert bool(nxt.converged.all()) and nxt.iterations < direct.iterations
 
 
+def _prepared_fields(jprep):
+    """A JAX BoxQPPrepared as the mapping of numpy fields that
+    ``prepared_from_numpy`` takes."""
+    fields = {k: (None if v is None else np.asarray(v))
+              for k, v in _fields(jprep).items()
+              if k not in ("factors", "mode")}
+    fields["mode"] = jprep.mode
+    fields["factors"] = {k: None if v is None else np.asarray(v)
+                         for k, v in _fields(jprep.factors).items()}
+    return fields
+
+
 def test_state_carried_over_from_jax():
     """A JAX BoxQPPrepared and a JAX solution, carried over as numpy,
     give the JAX prepared solve's answer."""
@@ -193,13 +207,7 @@ def test_state_carried_over_from_jax():
     cfg = dict(eps_abs=1e-6, eps_rel=1e-6)
     jprep = J.prepare_box_qp(*_jax((Q, A, b, lb, ub)),
                              config=J.BoxQPConfig(**cfg))
-    fields = {k: (None if v is None else np.asarray(v))
-              for k, v in _fields(jprep).items()
-              if k not in ("factors", "mode")}
-    fields["mode"] = jprep.mode
-    fields["factors"] = {k: None if v is None else np.asarray(v)
-                         for k, v in _fields(jprep.factors).items()}
-    tprep = prepared_from_numpy(fields)
+    tprep = prepared_from_numpy(_prepared_fields(jprep))
 
     js0 = J.solve_box_qp_prepared(jprep, jnp.asarray(p),
                                   config=J.BoxQPConfig(**cfg))
@@ -218,11 +226,64 @@ def test_state_carried_over_from_jax():
                                  config=T.BoxQPConfig(**cfg), warm_start=warm)
     _assert_same_solve(js, ts, atol=1e-9)
 
+    # A preparation for the early-exit step carries its materialized P.
+    cfg_e = dict(cfg, use_pallas_step=True)
+    jprep_e = J.prepare_box_qp(*_jax((Q, A, b, lb, ub)),
+                               config=J.BoxQPConfig(**cfg_e))
+    tprep_e = prepared_from_numpy(_prepared_fields(jprep_e))
+    assert tprep_e.factors.P.shape == (4, 256, 256)
+    js_e = J.solve_box_qp_prepared(jprep_e, jnp.asarray(p),
+                                   config=J.BoxQPConfig(**cfg_e))
+    ts_e = T.solve_box_qp_prepared(tprep_e, torch.tensor(p),
+                                   config=T.BoxQPConfig(**cfg_e))
+    _assert_same_solve(js_e, ts_e, atol=1e-8)
+
+
+@pytest.mark.parametrize("prep_early,solve_early", [(False, True),
+                                                    (True, False)],
+                         ids=["grow-to-256", "slice-to-128"])
+def test_prepared_at_other_alignment_equals_direct_solve(prep_early,
+                                                         solve_early):
+    """n=300 pads to 384 at the plain alignment and to 512 for the
+    early-exit step; a preparation made for one serves the other (the
+    cached operand and factors are resized, P built where missing) and
+    gives the direct solve of the solve-time config."""
+    Q, p, A, b, lb, ub = problem_from_numpy(
+        *_np(create_qp_data(300, 3, seed=21, dtype=jnp.float64), np.float64))
+    base = dict(eps_abs=1e-8, eps_rel=1e-8)
+    prep = T.prepare_box_qp(Q, A, b, lb, ub, config=T.BoxQPConfig(
+        use_pallas_step=prep_early, **base))
+    assert prep.H.shape[-1] == (512 if prep_early else 384)
+    assert (prep.factors.P is not None) == prep_early
+    cfg = T.BoxQPConfig(use_pallas_step=solve_early, **base)
+    direct = T.solve_box_qp(Q, p, A, b, lb, ub, config=cfg)
+    served = T.solve_box_qp_prepared(prep, p, config=cfg)
+    assert bool(direct.converged.all())
+    assert served.iterations == direct.iterations
+    np.testing.assert_allclose(served.x.numpy(), direct.x.numpy(),
+                               rtol=1e-9, atol=1e-10)
+
+
+def test_generate_hard_qp_structure():
+    n, B = 50, 3
+    Q, p, A, b, lb, ub = generate_hard_qp_t(n, B, seed=4)
+    m = round(n ** 0.5)
+    assert Q.shape == (B, n, n) and A.shape == (B, m, n)
+    assert p.shape == lb.shape == ub.shape == (B, n) and b.shape == (B, m)
+    assert Q.dtype == torch.float64
+    assert bool((A != 0).any(dim=-1).all()), "an all-zero equality row"
+    assert bool((lb < ub).all())
+    assert torch.equal(Q, Q.mT)
+    assert bool((torch.linalg.eigvalsh(Q) >= 1e-2 - 1e-9).all())
+    # Same seed, same data; another seed, other data.
+    assert all(torch.equal(a, c) for a, c in
+               zip((Q, p, A, b, lb, ub), generate_hard_qp_t(n, B, seed=4)))
+    assert not torch.equal(Q, generate_hard_qp_t(n, B, seed=5).Q)
+
 
 @pytest.mark.parametrize("cfg", [
-    dict(polish=True), dict(acceleration=3), dict(use_pallas_step=True),
-    dict(kkt_solver="cholesky"),
-], ids=["polish", "acceleration", "use_pallas_step", "cholesky"])
+    dict(polish=True), dict(acceleration=3), dict(kkt_solver="cholesky"),
+], ids=["polish", "acceleration", "cholesky"])
 def test_unported_options_raise(cfg):
     Q, p, A, b, lb, ub = problem_from_numpy(
         *_np(create_qp_data(10, 2, dtype=jnp.float64), np.float64))

@@ -1,9 +1,9 @@
-"""The port's CUDA kernel on the card.
+"""The port's CUDA kernels on the card.
 
-Every test here needs an NVIDIA GPU and skips without one (the kernel is
-CUDA C++ with no CPU mode; its plain version is held against the JAX
-package in tests/test_torch_linalg.py).  This file imports no JAX, so it
-runs on a machine that has none:
+Every test here needs an NVIDIA GPU and skips without one (the kernels are
+CUDA C++ with no CPU mode; their plain versions are held against the JAX
+package in tests/test_torch_linalg.py and tests/test_torch_admm_step.py).
+This file imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from lqp_py_tpu_torch import BoxQPConfig, solve_box_qp
+from lqp_py_tpu_torch.ops.kernels import admm_step as gk
 from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
 from lqp_py_tpu_torch.utils.generators import create_qp_data
 
@@ -21,8 +22,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the SWEEP-leaf kernel has no "
-                    "CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -66,5 +66,61 @@ def test_solve_on_cuda_matches_cpu(cuda):
     before = sk.LAUNCHES
     gpu = solve_box_qp(*(t.to(cuda) for t in data), config=cfg)
     assert sk.LAUNCHES - before >= 2           # two 128 leaves at n=256
+    assert bool(gpu.converged.all()) and bool(cpu.converged.all())
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4
+
+
+def _gemv_inputs(B, n, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    P = torch.randn((B, n, n), generator=g, device=device)
+    r = torch.randn((B, n), generator=g, device=device)
+    x_prev = torch.randn((B, n), generator=g, device=device)
+    return P, r, x_prev
+
+
+@pytest.mark.parametrize("n", [384, 385, 1000, 1024])
+@pytest.mark.parametrize("B", [1, 7, 128])
+def test_gemv_kernel_matches_plain_version(cuda, B, n):
+    # n = 385 takes the scalar path (rows not 16-byte aligned).
+    P, r, x_prev = _gemv_inputs(B, n, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    order = torch.randperm(B, generator=g, device=cuda)
+    for frac in (0.0, 0.5, 1.0):
+        conv = torch.zeros(B, dtype=torch.bool, device=cuda)
+        conv[order[:round(frac * B)]] = True
+        before = gk.LAUNCHES
+        out = gk.gemv_early_exit(P, r, x_prev, conv)
+        torch.cuda.synchronize()
+        assert gk.LAUNCHES == before + 1
+        ref = gk.gemv_early_exit_ref(P, r, x_prev, conv)
+        assert torch.equal(out[conv], x_prev[conv])
+        act = ~conv
+        if bool(act.any()):
+            err = (out[act] - ref[act]).abs().max()
+            assert err <= 1e-5 * ref[act].abs().max(), (frac, err.item())
+
+
+@pytest.mark.parametrize("make", [
+    lambda P, r, x: (P.double(), r.double(), x.double()),
+    lambda P, r, x: (P.mT, r, x),
+    lambda P, r, x: (P[:, :, :-1], r[:, :-1], x[:, :-1]),
+], ids=["float64", "non-contiguous", "not-square"])
+def test_gemv_kernel_rejects_what_it_does_not_take(cuda, make):
+    P, r, x_prev = make(*_gemv_inputs(2, 256, cuda))
+    conv = torch.tensor([False, True], device=cuda)
+    before = gk.LAUNCHES
+    with pytest.raises(ValueError):
+        gk.gemv_early_exit(P, r, x_prev, conv)
+    assert gk.LAUNCHES == before
+
+
+def test_early_exit_solve_on_cuda_matches_cpu(cuda):
+    data = create_qp_data(200, 8, seed=3)
+    cfg = BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False,
+                      use_pallas_step=True)
+    cpu = solve_box_qp(*data, config=cfg)
+    before = gk.LAUNCHES
+    gpu = solve_box_qp(*(t.to(cuda) for t in data), config=cfg)
+    assert gk.LAUNCHES - before == gpu.iterations
     assert bool(gpu.converged.all()) and bool(cpu.converged.all())
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4

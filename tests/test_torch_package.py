@@ -110,6 +110,64 @@ def test_library_name_follows_source_content(tmp_path, monkeypatch):
     assert first.parent == _build.BUILD_DIR
 
 
+_FAKE_NVCC = """#!{python}
+import sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+def note(what):
+    with open({log!r}, "a") as f:
+        f.write(f"{{what}} {{time.time()}} {{' '.join(args)}}\\n")
+note("start")
+if "-c" in args:
+    time.sleep(1.0)
+    if "bad.cu" in args[-1]:
+        note("end")
+        sys.exit("bad.cu: error")
+open(out, "w").write("obj")
+note("end")
+"""
+
+
+@pytest.mark.parametrize("bad", [False, True], ids=["ok", "one-fails"])
+def test_build_compiles_each_source_side_by_side(tmp_path, monkeypatch,
+                                                 bad):
+    """One compiler process per source, all started before any ends, then
+    one link of every object; a failing source raises with its output and
+    leaves no library behind."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "bad.cu" if bad else "c.cu"):
+        (csrc / name).write_text(f"// {name}\n")
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    out = _build.library_path()
+    if bad:
+        with pytest.raises(RuntimeError, match="bad.cu: error"):
+            _build._compile(out)
+        assert not out.exists()
+    else:
+        _build._compile(out)
+        assert out.read_text() == "obj"
+    calls = [line.split(" ", 2) for line in log.read_text().splitlines()]
+    compiles = [(what, float(t)) for what, t, a in calls
+                if "-c" in a.split()]
+    starts = [t for what, t in compiles if what == "start"]
+    ends = [t for what, t in compiles if what == "end"]
+    assert len(starts) == len(ends) == 3
+    assert max(starts) < min(ends)
+    links = [a.split() for what, _, a in calls
+             if what == "start" and "-shared" in a.split()]
+    assert len(links) == (0 if bad else 1)
+    if not bad:
+        assert sum(a.endswith(".o") for a in links[0]) == 3
+    assert list((tmp_path / "build").iterdir()) == ([] if bad else [out])
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
