@@ -1,11 +1,11 @@
-"""Drive the PyTorch port's forward box-QP path once on one CUDA card.
+"""Drive the PyTorch port's box-QP paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
-toolkit.  It builds both kernels (the SWEEP leaf and the early-exit GEMV)
-from ``lqp_py_tpu_torch/csrc`` into ``build/`` and checks each against its
-plain PyTorch version.  Then it serves the reference's Experiment-1 shape
+toolkit.  It builds the three kernels (the SWEEP leaf, the early-exit GEMV
+and the block-sweep inverse) from ``lqp_py_tpu_torch/csrc`` into ``build/``
+and checks each against its plain PyTorch version.  Then it serves the reference's Experiment-1 shape
 (B=128 box QPs of n=1000, float32, eps_abs = eps_rel = 1e-5): three direct
 requests, one of them checked against a float64 solve, then a prepared
 problem answering four requests with a drifting cost vector and warm
@@ -15,13 +15,21 @@ host's pace; phase 8 solves the straggler serving batch of
 experiments/experiment_straggler.py (8 hard problems among 120 ridged easy
 ones, B=128, n=1000) lock-step and with the early-exit step, serves it
 prepared, and reports the share of the batch the early-exit GEMV found
-frozen.  Every phase raises on failure.
-The line before the last lists each kernel with its launches on the
-serving paths, its error against the plain version and both times; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
-non-zero before printing any result.
+frozen.  Phase 9 checks the whole-matrix block-sweep inverse at
+(128, 1024, 1024) against its plain version and times it beside the
+solver's recursion and a Cholesky inverse; phase 10 runs bench.py's
+forward+backward (the differentiable layer, gradients with respect to Q
+and p of ``sum(w * x)``) at B=128, n=1000 and holds the float32 backward
+against a float64 one; phase 11 takes ten steps of the Experiment-2
+trainer (n_x=500, minibatch 32 of 128, SGD).  Every phase raises on
+failure.  The line before the last lists each kernel with its launches on
+its paths, its error against the plain version, its time beside the plain
+version's, its bound and a library yardstick; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
+printing any result.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,6 +42,16 @@ N, B, TOL = 1000, 128, 1e-5
 LEAF = 128
 N_HARD = 8          # stragglers in the phase-8 batch
 N_PAD = 1024        # n=1000 padded to the 128 and to the 256 alignment
+# Experiment 2 at experiments/experiment_2.py's defaults.
+N_X2, N_FEAT2, N_BATCH2, MINI2, LR2, STEPS2 = 500, 5, 128, 32, 5e-4, 10
+# The H100 SXM's published peaks (700 W): float32 outside the tensor cores
+# and HBM3.  The bounds use the float32 rate, the type these kernels compute
+# in; a 3xTF32 split (three TF32 products per float32 one, 495/3 TFLOP/s)
+# would reach about float32 accuracy on the tensor cores and is reported
+# beside the block inverse's bound as the rate a faster design could aim at.
+F32_FLOPS, TF32X3_FLOPS, HBM_BYTES_S = 67e12, 495e12 / 3, 3.35e12
+# The card the script drives; the CPU rehearsal test sets "cpu".
+DEVICE = "cuda"
 
 
 def _check(cond, msg):
@@ -60,6 +78,13 @@ def _event_ms(fn, reps, queued=False):
     return start.elapsed_time(end) / reps
 
 
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations at the float32
+    rate and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def _wall_ms(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -72,17 +97,21 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "check needs an NVIDIA GPU")
-    from lqp_py_tpu_torch import (BoxQPConfig, prepare_box_qp, solve_box_qp,
-                                  solve_box_qp_prepared)
+    from lqp_py_tpu_torch import (BoxQPConfig, boxqp, prepare_box_qp,
+                                  solve_box_qp, solve_box_qp_prepared)
+    from lqp_py_tpu_torch.models import box_qp_grad as grads
+    from lqp_py_tpu_torch.models import layers
+    from lqp_py_tpu_torch.models import train
     from lqp_py_tpu_torch.ops import linalg as lin
     from lqp_py_tpu_torch.ops.kernels import _build
     from lqp_py_tpu_torch.ops.kernels import admm_step as gk
+    from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
     from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
     from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
     from lqp_py_tpu_torch.utils.generators import (create_qp_data,
                                                    generate_hard_qp)
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(DEVICE, 0)
     torch.cuda.set_device(dev)
 
     # 1. Device.
@@ -127,12 +156,23 @@ def main():
     t_k2 = _event_ms(lambda: sk.sweep_spd_inverse(H), 20)
     t_p2 = _event_ms(lambda: sk.sweep_spd_inverse_ref(H), 5)
     kernel_ms, plain_ms = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+
+    def chol_inv(X):
+        return torch.cholesky_inverse(torch.linalg.cholesky(X))
+
+    chol_inv(H)
+    leaf_lib_ms = _event_ms(lambda: chol_inv(H), 20)
+    # An SPD inverse needs about n^3 flops (Cholesky, triangular inverse and
+    # the symmetric product, n^3/3 each); each matrix read and written once.
+    leaf_bound = _bound(B * LEAF ** 3, 2 * 4 * B * LEAF ** 2)
     print(f"phase 3 leaf ({B},{LEAF},{LEAF}) f32: max|kernel-plain| "
           f"{max_abs:.3e} (rel {rel:.3e} <= 1e-4); |H Hinv - I|max kernel "
           f"{res_k:.3e}, plain {res_r:.3e} (<= 1e-4); |Hinv - inv_f64|max "
           f"kernel {err_k:.3e}, plain {err_r:.3e}; kernel {kernel_ms:.4f} ms "
           f"({t_k1:.4f}, {t_k2:.4f}), plain {plain_ms:.4f} ms "
-          f"({t_p1:.4f}, {t_p2:.4f})")
+          f"({t_p1:.4f}, {t_p2:.4f}), cholesky_inverse(cholesky) "
+          f"{leaf_lib_ms:.4f} ms; bound {leaf_bound[0]:.4f} ms by "
+          f"{leaf_bound[1]}")
 
     # 4. One factorization at the serving shape (bench.py's probe).
     data0 = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
@@ -146,7 +186,8 @@ def main():
         fact_ms = _event_ms(lambda: lin.spd_inverse_fast(Hq), 3)
     del Hi
     _check(res < 1e-4, f"factorization residual {res:.3e}")
-    _check(leaf_calls == 8, f"{leaf_calls} leaf launches, expected 8")
+    _check(leaf_calls == N_PAD // LEAF,
+           f"{leaf_calls} leaf launches, expected {N_PAD // LEAF}")
     print(f"phase 4 spd_inverse_fast(Q + I) B={B} n={N} f32: |H Hinv - I|max "
           f"{res:.3e} (< 1e-4), {leaf_calls} leaf launches, "
           f"{fact_ms:.3f} ms")
@@ -248,6 +289,10 @@ def main():
             def plain():
                 gk.gemv_early_exit_ref(P7, r7, x7, conv)
 
+            if frac == 0.0:
+                # Nothing converged: one batched matmul is the function.
+                gemv_lib_ms = _event_ms(lambda: P7 @ r7[..., None], 20,
+                                        True)
             times = {}
             for queued in (True, False):
                 t_p1 = _event_ms(plain, 20, queued)
@@ -276,10 +321,13 @@ def main():
     bytes0 = 4 * B * N_PAD * (N_PAD + 3)
     gbps0 = bytes0 / (gemv[0.0]["ms"] * 1e-3) / 1e9
     ratio90 = gemv[0.9]["ms"] / gemv[0.0]["ms"]
+    gemv_bound = _bound(2 * B * N_PAD ** 2, bytes0)
     print(f"phase 7 kernel at 0% converged: {gbps0:.1f} GB/s "
           f"({bytes0 / 1e6:.1f} MB); 90%/0% device time ratio {ratio90:.3f} "
           f"(< 0.5), host-paced "
-          f"{gemv[0.9]['paced_ms'] / gemv[0.0]['paced_ms']:.3f}")
+          f"{gemv[0.9]['paced_ms'] / gemv[0.0]['paced_ms']:.3f}; bound "
+          f"{gemv_bound[0]:.4f} ms by {gemv_bound[1]}; P @ r (one batched "
+          f"matmul) {gemv_lib_ms:.4f} ms")
     _check(ratio90 < 0.5, f"90%-converged GEMV takes {ratio90:.3f} of the "
            f"0% time: frozen panels are read")
 
@@ -396,24 +444,232 @@ def main():
           f"iteration {easy_at}; frozen count@iteration "
           f"[{', '.join(steps)}]")
 
+    # 9. The whole-matrix block-sweep inverse at its own entry point (no
+    # solver calls it), on its input contract: an equilibrated SPD stack,
+    # Q + I of the serving problems at n = 1024, Jacobi-scaled.
+    H9 = create_qp_data(N_PAD, B, seed=0, dtype=torch.float32,
+                        device=dev).Q
+    H9.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    d9 = H9.diagonal(dim1=-2, dim2=-1).rsqrt()
+    H9 = H9 * d9[:, :, None] * d9[:, None, :]
+    del d9
+    with highest_matmul_precision():
+        bk.LAUNCHES = 0
+        Hk9 = bk.block_spd_inverse(H9)
+        torch.cuda.synchronize()
+        launches9 = bk.LAUNCHES
+        _check(launches9 == 1, f"{launches9} block-inverse launches for one "
+               f"call")
+        Hr9 = bk.block_spd_inverse_ref(H9)
+        max_abs9 = (Hk9 - Hr9).abs().max().item()
+        rel9 = max_abs9 / Hr9.abs().max().item()
+        H64 = H9.double()
+        eye64 = torch.eye(N_PAD, dtype=torch.float64, device=dev)
+        res9_k = (H64 @ Hk9.double() - eye64).abs().max().item()
+        res9_r = (H64 @ Hr9.double() - eye64).abs().max().item()
+        del H64, eye64, Hk9, Hr9
+        _check(rel9 <= 1e-4, f"block inverse kernel vs plain relative "
+               f"difference {rel9:.3e}")
+        _check(res9_k <= 1e-4 and res9_r <= 1e-4, f"block inverse residuals "
+               f"kernel {res9_k:.3e}, plain {res9_r:.3e}")
+        fns9 = {"kernel": lambda: bk.block_spd_inverse(H9),
+                "plain": lambda: bk.block_spd_inverse_ref(H9),
+                "recursion": lambda: lin.spd_inverse_fast(
+                    H9, equilibrate=False),
+                "cholesky_inverse": lambda: chol_inv(H9)}
+        reps9 = {"kernel": 3, "plain": 1, "recursion": 3,
+                 "cholesky_inverse": 2}
+        for fn in fns9.values():
+            fn()
+        t9 = {k: [] for k in fns9}
+        for order in (list(fns9), list(fns9)[::-1]):
+            for k in order:
+                t9[k].append(_event_ms(fns9[k], reps9[k]))
+    ms9 = {k: sum(v) / len(v) for k, v in t9.items()}
+    # n^3 flops per SPD inverse, as for the leaf (the unsymmetric sweep
+    # does 2n^3: that is the design's cost, not the function's).
+    block_bound = _bound(B * N_PAD ** 3, 2 * 4 * B * N_PAD ** 2)
+    block_bound_3xtf32 = B * N_PAD ** 3 / TF32X3_FLOPS * 1e3
+    del H9
+    print(f"phase 9 block inverse ({B},{N_PAD},{N_PAD}) f32: "
+          f"{launches9} launch; max|kernel-plain| {max_abs9:.3e} (rel "
+          f"{rel9:.3e} <= 1e-4); |H Hinv - I|max kernel {res9_k:.3e}, plain "
+          f"{res9_r:.3e} (<= 1e-4); ms " + ", ".join(
+              f"{k} {ms9[k]:.4f} ({', '.join(f'{t:.4f}' for t in t9[k])})"
+              for k in fns9) + f"; bound {block_bound[0]:.4f} ms by "
+          f"{block_bound[1]} (n^3 B flops at {F32_FLOPS / 1e12:g} TFLOP/s; "
+          f"{block_bound_3xtf32:.4f} ms at the 3xTF32 rate)")
+
+    # 10. bench.py's forward+backward: boxqp at B=128, n=1000, gradients
+    # with respect to Q and p of sum(w * x), w from a numpy seed.
+    data10 = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
+    Q10, p10, A10, b10, lb10, ub10 = data10
+    Q10.requires_grad_(True)
+    p10.requires_grad_(True)
+    w10 = torch.as_tensor(np.random.default_rng(10).standard_normal((B, N)),
+                          dtype=torch.float32, device=dev)
+    cfg10 = BoxQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False)
+    leaves10 = N_PAD // LEAF
+
+    def fwd_bwd(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = boxqp(Q10, p10, A10, b10, lb10, ub10, config=cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s0 = sk.LAUNCHES
+        gQ, gp = torch.autograd.grad((w10 * x).sum(), (Q10, p10))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (x.detach(), gQ, gp, sk.LAUNCHES - s0,
+                ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t2 - t0) * 1e3))
+
+    sk.LAUNCHES = 0
+    x10, gQ10, gp10, bwd_leaves, _ = fwd_bwd(cfg10)
+    launches10 = sk.LAUNCHES
+    _check(bwd_leaves == leaves10, f"{bwd_leaves} leaf launches in the "
+           f"fixed-point backward, expected {leaves10}")
+    _check(all(bool(torch.isfinite(t).all()) for t in (x10, gQ10, gp10)),
+           "x or a gradient not finite")
+    _check(tuple(gQ10.shape) == (B, N, N) and tuple(gp10.shape) == (B, N),
+           "gradient shapes")
+    # The forward's solution (the layer returns x only): the same solve.
+    sol10 = solve_box_qp(*(t.detach() for t in data10), config=cfg10)
+    n_conv = int(sol10.converged.sum())
+    _check(n_conv == B, f"flagship forward: {n_conv}/{B} converged")
+    dx_layer = (sol10.x - x10).abs().max().item()
+    _check(dx_layer <= 1e-6, f"layer x vs solve x differ by {dx_layer:.3e}")
+    # The float32 backward on the card against the float64 backward
+    # (Cholesky) fed the same float32 residual set cast to float64.
+    res10 = dict(x=sol10.x, u=sol10.u, lams=sol10.lams, nus=sol10.nus,
+                 Q=Q10.detach(), A=A10, lb=lb10, ub=ub10, rho=sol10.rho)
+    g32 = grads.box_qp_grad_fixed_point(w10, **res10,
+                                        reg=cfg10.backward_reg)
+    g64 = grads.box_qp_grad_fixed_point(
+        w10.double(), **{k: v.double() for k, v in res10.items()},
+        reg=cfg10.backward_reg)
+    rel_dp = ((g32[1].double() - g64[1]).abs().max()
+              / g64[1].abs().max()).item()
+    rel_dQ = ((g32[0].double() - g64[0]).abs().max()
+              / g64[0].abs().max()).item()
+    # The layer's autograd gradients against the direct call on the same
+    # residual set: the saved residuals, the outputs' order and layout.
+    wire_dp = ((gp10 - g32[1]).abs().max() / g32[1].abs().max()).item()
+    wire_dQ = ((gQ10 - g32[0]).abs().max() / g32[0].abs().max()).item()
+    del g32, g64, res10
+    _check(wire_dp <= 1e-5 and wire_dQ <= 1e-5, f"layer vs direct backward: "
+           f"relative max|ddp| {wire_dp:.3e}, max|ddQ| {wire_dQ:.3e}")
+    _check(rel_dp <= 1e-4, f"f32 vs f64 backward: relative max|ddp| "
+           f"{rel_dp:.3e}")
+    _, gQk, gpk, kkt_leaves, _ = fwd_bwd(dataclasses.replace(
+        cfg10, backward="kkt"))
+    dkkt_p = (gpk - gp10).abs().max().item()
+    dkkt_Q = (gQk - gQ10).abs().max().item()
+    del gQk, gpk
+    times10 = [fwd_bwd(cfg10)[-1] for _ in range(3)]
+    print(f"phase 10 flagship forward+backward (B={B}, n={N}, f32, tol "
+          f"{TOL:g}, fixed_point, d/dQ and d/dp of sum(w x)): {n_conv}/{B} "
+          f"converged in {sol10.iterations} iterations; {launches10} leaf "
+          f"launches, {bwd_leaves} in the backward (= {leaves10}); x and "
+          f"both gradients finite; max|dp| {gp10.abs().max().item():.4e}; "
+          f"layer vs direct backward: relative max|ddp| {wire_dp:.3e}, "
+          f"max|ddQ| {wire_dQ:.3e} (<= 1e-5); f32 vs f64 backward on one "
+          f"residual set: relative max|ddp| {rel_dp:.3e} (<= 1e-4), max|ddQ| "
+          f"{rel_dQ:.3e}; kkt backward "
+          f"({kkt_leaves} leaves) vs fixed_point: max|ddp| {dkkt_p:.3e}, "
+          f"max|ddQ| {dkkt_Q:.3e}; ms forward/backward/total " + "; ".join(
+              f"{f:.2f}/{b_:.2f}/{t:.2f}" for f, b_, t in times10))
+    del data10, Q10, p10, gQ10, gp10, x10, sol10
+
+    # 11. Experiment-2 trainer: LinearQP + boxqp, SGD on minibatches of the
+    # numpy-seeded index matrix, default BoxQPConfig at tol 1e-5.
+    rng11 = np.random.default_rng(11)
+    data11 = create_qp_data(N_X2, N_BATCH2, seed=0, dtype=torch.float32,
+                            device=dev)
+
+    def on_dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    feats11 = on_dev(rng11.standard_normal((N_BATCH2, N_FEAT2)))
+    beta11 = on_dev(rng11.standard_normal((N_FEAT2, N_X2)))
+    sel11 = np.stack([rng11.choice(N_BATCH2, MINI2, replace=False)
+                      for _ in range(STEPS2)])
+    with highest_matmul_precision():
+        p_true11 = feats11 @ beta11
+    params11 = train.init_params(N_FEAT2, N_X2, generator=torch.Generator(
+        device=dev).manual_seed(11), device=dev)
+    W0 = params11.W.detach().clone()
+    step11 = train.make_train_step(BoxQPConfig(eps_abs=TOL, eps_rel=TOL),
+                                   lr=LR2)
+    full11 = (feats11, data11.Q, p_true11, data11.A, data11.b, data11.lb,
+              data11.ub)
+    bwd_leaves11 = []
+    bwd_fn = layers._boxqp_bwd
+
+    def counted_bwd(*args, **kw):
+        s0 = sk.LAUNCHES
+        out = bwd_fn(*args, **kw)
+        bwd_leaves11.append(sk.LAUNCHES - s0)
+        return out
+
+    layers._boxqp_bwd = counted_bwd
+    losses11, ms11 = [], []
+    try:
+        sk.LAUNCHES = 0
+        for idx in sel11:
+            mb = [v[torch.as_tensor(idx, device=dev)] for v in full11]
+            (params11, loss), ms = _wall_ms(lambda: step11(params11, *mb))
+            losses11.append(loss.item())
+            ms11.append(ms)
+        launches11 = sk.LAUNCHES
+    finally:
+        layers._boxqp_bwd = bwd_fn
+    leaves11 = -(-N_X2 // LEAF)
+    _check(all(np.isfinite(losses11)), f"training losses {losses11}")
+    _check(bwd_leaves11 == [leaves11] * STEPS2,
+           f"leaf launches per backward {bwd_leaves11}, expected "
+           f"{leaves11} each")
+    moved = (params11.W.detach() - W0).abs().max().item()
+    _check(moved > 0, "the trainer's parameters did not move")
+    print(f"phase 11 Experiment-2 trainer (n_x={N_X2}, {N_FEAT2} features, "
+          f"minibatch {MINI2} of {N_BATCH2}, SGD lr {LR2:g}, tol {TOL:g}): "
+          f"{STEPS2} steps, {launches11} leaf launches, {leaves11} per "
+          f"backward; max|dW| {moved:.3e}; loss per step "
+          f"[{', '.join(f'{v:.5f}' for v in losses11)}]; ms per step "
+          f"[{', '.join(f'{v:.2f}' for v in ms11)}]")
+
     print(json.dumps({"kernels": [{
         "name": "sweep_spd_inverse", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/sweep_spd_inverse.cu",
         "replaces": "lqp_py_tpu/ops/pallas/spd_inverse.py:53",
         "launches": launches, "launches_straggler": launches8_sweep,
-        "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "launches_fwd_bwd": launches10, "launches_train": launches11,
+        "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": leaf_bound[0], "bound_by": leaf_bound[1],
+        "library_ms": leaf_lib_ms}, {
         "name": "gemv_early_exit", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/gemv_early_exit.cu",
         "replaces": "lqp_py_tpu/ops/pallas/admm_step.py:52",
         "launches": launches8_gemv,
         "max_abs_err": max(v["err"] for v in gemv.values()),
         "ms": gemv[0.0]["ms"], "plain_ms": gemv[0.0]["plain_ms"],
+        "bound_ms": gemv_bound[0], "bound_by": gemv_bound[1],
+        "library_ms": gemv_lib_ms,
         "ms_50": gemv[0.5]["ms"], "plain_ms_50": gemv[0.5]["plain_ms"],
         "ms_90": gemv[0.9]["ms"], "plain_ms_90": gemv[0.9]["plain_ms"],
         "paced_ms": {f"{f:.0%}": gemv[f]["paced_ms"] for f in gemv},
         "paced_plain_ms": {f"{f:.0%}": gemv[f]["paced_plain_ms"]
                            for f in gemv},
-        "gb_per_s_0": gbps0, "frozen_share_straggler": share8}]}))
+        "gb_per_s_0": gbps0, "frozen_share_straggler": share8}, {
+        "name": "block_spd_inverse", "route": "cuda",
+        "source": "lqp_py_tpu_torch/csrc/block_spd_inverse.cu",
+        "replaces": "lqp_py_tpu/ops/pallas/block_inverse.py:99",
+        "launches": launches9, "max_abs_err": max_abs9,
+        "ms": ms9["kernel"], "plain_ms": ms9["plain"],
+        "recursion_ms": ms9["recursion"],
+        "bound_ms": block_bound[0], "bound_by": block_bound[1],
+        "bound_ms_3xtf32": block_bound_3xtf32,
+        "library_ms": ms9["cholesky_inverse"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

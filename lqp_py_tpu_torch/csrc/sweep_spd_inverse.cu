@@ -2,23 +2,14 @@
 //
 // Replaces lqp_py_tpu/ops/pallas/spd_inverse.py::_sweep_kernel, the leaf of
 // the block Schur-complement recursion (lqp_py_tpu_torch/ops/linalg.py
-// _schur_inverse) under every KKT factorization of the box-QP solver.
-//
-// Sweeping pivot k of a symmetric A (d = A[k,k]) maps
-//     A[k,k] -> -1/d,   A[i,k] -> A[i,k]/d,   A[k,j] -> A[k,j]/d,
-//     A[i,j] -> A[i,j] - A[i,k] A[k,j] / d          (i, j != k);
-// sweeping every pivot of an SPD matrix gives -A^-1 (each pivot is a Schur
-// complement diagonal, hence positive: no pivoting).  Symmetry lets the
-// pivot row stand in for the pivot column, so a step reads one row.
+// _schur_inverse) under every KKT factorization of the box-QP solver and
+// every backward solve (_schur_solve_rec).  The recurrence itself is
+// sweep_tile.cuh.
 //
 // Design: one thread block per matrix (grid = B, one wave of 128 blocks on
 // the H100's 132 SMs at the solver's B = 128).  The 64 KB tile lives in
-// dynamic shared memory for all 128 steps; each thread owns a fixed set of
-// tile elements (one column, every fourth row), so a step needs no tile
-// reads from other threads: the only shared value is the pivot row, kept
-// double-buffered so that each step ends in a single __syncthreads().  The
-// thread that writes row k+1 during step k also writes it into the next
-// pivot buffer.  The final negation is folded into the store.
+// dynamic shared memory for all 128 steps, with 512 threads on it.  The
+// final negation is folded into the store.
 //
 // Bound: the 128-step dependency chain and shared-memory traffic (one load
 // and one store of every tile element per step), not device memory — each
@@ -29,11 +20,12 @@
 
 #include <cuda_runtime.h>
 
+#include "sweep_tile.cuh"
+
 namespace {
 
-constexpr int kM = 128;                      // leaf size (matrix order)
+constexpr int kM = kSweepM;                  // leaf size (matrix order)
 constexpr int kThreads = 512;
-constexpr int kRowStride = kThreads / kM;    // rows between a thread's elements
 constexpr size_t kSmemBytes = (size_t)(kM * kM + 2 * kM) * sizeof(float);
 
 __global__ void __launch_bounds__(kThreads)
@@ -46,32 +38,12 @@ sweep_kernel(const float* __restrict__ H, float* __restrict__ out) {
   const float* src = H + base;
   float* dst = out + base;
   const int tid = threadIdx.x;
-  const int j = tid % kM;                    // this thread's column
-  const int i0 = tid / kM;                   // and its first row
 
   for (int e = tid; e < kM * kM; e += kThreads) tile[e] = src[e];
   if (tid < kM) prow[tid] = src[tid];        // pivot row 0
   __syncthreads();
 
-  for (int k = 0; k < kM; ++k) {
-    const float* p = prow + (k & 1) * kM;
-    float* p_next = prow + ((k + 1) & 1) * kM;
-    const float dinv = 1.0f / p[k];
-    const float vj = p[j] * dinv;
-    for (int i = i0; i < kM; i += kRowStride) {
-      float a;
-      if (i == k) {
-        a = (j == k) ? -dinv : vj;
-      } else if (j == k) {
-        a = p[i] * dinv;
-      } else {
-        a = tile[i * kM + j] - p[i] * vj;
-      }
-      tile[i * kM + j] = a;
-      if (i == k + 1) p_next[j] = a;
-    }
-    __syncthreads();
-  }
+  sweep_tile<kThreads>(tile, prow);
 
   for (int e = tid; e < kM * kM; e += kThreads) dst[e] = -tile[e];
 }

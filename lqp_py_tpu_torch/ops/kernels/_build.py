@@ -1,11 +1,12 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 ``load_library()`` compiles every ``lqp_py_tpu_torch/csrc/*.cu`` (one nvcc
-per source, all started together) and links the objects into one shared
+per source, all started together; ``*.cuh`` are headers they include)
+and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``build/lqp_py_tpu_torch/`` at the repository root.
-The file name carries a hash of the sources and flags: an edited source
-builds anew, an unchanged one is loaded as it is.  Nothing here runs at
+The file name carries a hash of the sources, headers and flags: an edited
+source builds anew, an unchanged one is loaded as it is.  Nothing here runs at
 import time, so machines without ``nvcc`` can import the package.
 """
 
@@ -49,7 +50,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblqp_kernels_{h.hexdigest()[:16]}.so"
@@ -104,6 +105,10 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.gemv_early_exit_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.block_spd_inverse_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -20,9 +20,10 @@ takes the Cholesky inverse (as the JAX package does wherever its Pallas
 kernel cannot run), float32 takes the block Schur-complement recursion of
 GEMMs whose 128x128 diagonal leaves go to ``sweep_spd_inverse`` — the CUDA
 kernel for a CUDA tensor, its plain version for a CPU tensor, so the CPU
-tests run the algorithm the card runs.  The recursion GEMMs are
-``torch.matmul``; the solver entry points run them with TF32 off
-(ops/precision.py).
+tests run the algorithm the card runs.  ``spd_solve_fast`` (the backward
+pass's solve) dispatches the same way, with the recursion in solve-only
+form.  The recursion GEMMs are ``torch.matmul``; the solver entry points
+run them with TF32 off (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from lqp_py_tpu_torch.ops.kernels.spd_inverse import LEAF, sweep_spd_inverse
 
@@ -116,12 +118,31 @@ def _schur_inverse(H, leaf=_sweep_leaf):
     return torch.cat([top, bot], dim=-2)
 
 
+def _equilibrate(H):
+    """``(D H D, D)`` with ``D = diag(H)^-1/2`` as a (B, n) vector."""
+    d = torch.rsqrt(torch.clamp(H.diagonal(dim1=-2, dim2=-1), min=1e-30))
+    return H * d[..., :, None] * d[..., None, :], d
+
+
+def _pad_to_leaf(H):
+    """(B, n, n) -> (B, n_pad, n_pad) with n_pad the next multiple of LEAF
+    and an identity block in the pad (exact: the inverse of
+    blockdiag(H, I) is blockdiag(H^-1, I))."""
+    n = H.shape[-1]
+    pad = -(-n // LEAF) * LEAF - n
+    if not pad:
+        return H
+    Hp = H.new_zeros((H.shape[0], n + pad, n + pad))
+    Hp[:, :n, :n] = H
+    Hp[:, n:, n:] = torch.eye(pad, dtype=H.dtype, device=H.device)
+    return Hp
+
+
 def spd_inverse_fast(H, equilibrate: bool = True):
     """SPD inverse of (B, n, n).
 
     float64: Cholesky.  float32: the Schur recursion with sweep leaves
-    (``n`` padded to a multiple of 128 with an identity block, which is
-    exact: the inverse of blockdiag(H, I) is blockdiag(H^-1, I)), or the
+    (``n`` padded to a multiple of 128 with an identity block), or the
     batch-major Gauss-Jordan for n <= 64.
 
     With ``equilibrate=True`` the input is Jacobi-equilibrated first
@@ -131,29 +152,71 @@ def spd_inverse_fast(H, equilibrate: bool = True):
     already equilibrated (the box-QP solver Jacobi-scales Q) pass False."""
     if H.dtype != torch.float32:
         return spd_inverse(H)
-    if equilibrate:
-        diag = H.diagonal(dim1=-2, dim2=-1)
-        d = torch.rsqrt(torch.clamp(diag, min=1e-30))   # (B, n)
-        Hs = H * d[..., :, None] * d[..., None, :]
-    else:
-        d = None
-        Hs = H
+    Hs, d = _equilibrate(H) if equilibrate else (H, None)
     n = H.shape[-1]
     if n <= _GJ_MAX:
         Hi = _gj_inverse_small(Hs)
     else:
-        n_pad = -(-n // LEAF) * LEAF
-        pad = n_pad - n
-        if pad:
-            Hp = H.new_zeros((H.shape[0], n_pad, n_pad))
-            Hp[:, :n, :n] = Hs
-            Hp[:, n:, n:] = torch.eye(pad, dtype=H.dtype, device=H.device)
-            Hi = _schur_inverse(Hp)[:, :n, :n]
-        else:
-            Hi = _schur_inverse(Hs)
+        Hi = _schur_inverse(_pad_to_leaf(Hs))[:, :n, :n]
     if d is None:
         return Hi
     return Hi * d[..., :, None] * d[..., None, :]
+
+
+def _schur_solve_rec(H, R, leaf=_sweep_leaf):
+    """``H^-1 R`` without materializing the full inverse: the two half-size
+    diagonal blocks are inverted (``_schur_inverse``, sweep leaves) but the
+    cross-block pieces are only applied to ``R``.
+
+    H: (B, n, n) SPD with n a multiple of LEAF; R: (B, n, k)."""
+    n = H.shape[-1]
+    if n <= 2 * LEAF:
+        return _schur_inverse(H, leaf) @ R
+    h = (n // LEAF // 2) * LEAF
+    A = H[..., :h, :h]
+    Bm = H[..., :h, h:]
+    C = H[..., h:, h:]
+    Ai = _schur_inverse(A, leaf)
+    T = Ai @ Bm                                   # Ai B      (h, n-h)
+    Si = _schur_inverse(C - Bm.mT @ T, leaf)      # (C - B^T Ai B)^-1
+    Y1 = Ai @ R[..., :h, :]
+    X2 = Si @ (R[..., h:, :] - Bm.mT @ Y1)
+    X1 = Y1 - T @ X2
+    return torch.cat([X1, X2], dim=-2)
+
+
+def spd_solve_fast(H, R, equilibrate: bool = True,
+                   precision: str = "highest"):
+    """Solve ``H X = R`` for SPD (B, n, n) H and (B, n, k) R.
+
+    float64: a Cholesky solve.  float32, on every device: the Schur
+    recursion in solve-only form (``_schur_solve_rec``) with sweep leaves,
+    ``n`` padded to a multiple of 128 with an identity block (and R with
+    zero rows), or the batch-major Gauss-Jordan inverse for n <= 64.
+
+    ``equilibrate`` as in ``spd_inverse_fast``; pass False when the operand
+    is already (approximately) unit-diagonal.  ``precision`` is accepted for
+    the JAX package's signature and ignored: the JAX package picks a bf16
+    pass count for the TPU's matrix unit here, and the port's GEMMs run in
+    full float32 (TF32 stays off at every solver entry point)."""
+    del precision
+    if H.dtype != torch.float32:
+        return chol_solve(torch.linalg.cholesky(H), R)
+    if equilibrate:
+        Hs, d = _equilibrate(H)
+        Rs = R * d[..., :, None]
+    else:
+        Hs, Rs, d = H, R, None
+    n = H.shape[-1]
+    if n <= _GJ_MAX:
+        X = _gj_inverse_small(Hs) @ Rs
+    else:
+        Hp = _pad_to_leaf(Hs)
+        Rp = F.pad(Rs, (0, 0, 0, Hp.shape[-1] - n))
+        X = _schur_solve_rec(Hp, Rp)[:, :n, :]
+    if d is None:
+        return X
+    return X * d[..., :, None]
 
 
 @dataclasses.dataclass

@@ -1,11 +1,12 @@
 """State carried across from numpy, and so from the JAX package.
 
-The solver has no weights: the state it carries is problem data, a
-``BoxQPPrepared`` (scaled operand, scaled constraints, scaling vectors,
-rho0 and the KKT factors) and a warm-start ``BoxQPSolution``.  These
-functions take that state as numpy arrays — for a JAX object, the
-``np.asarray`` of each of its fields, made by the caller — and return the
-port's tensors and objects.  Nothing here imports JAX.
+The state is problem data, a ``BoxQPPrepared`` (scaled operand, scaled
+constraints, scaling vectors, rho0 and the KKT factors), a warm-start
+``BoxQPSolution``, and the weights of the Experiment-2 models
+(``LinearQP`` and ``LinearBoxQP``).  These functions take it as numpy
+arrays — for a JAX object, the ``np.asarray`` of each of its fields, made
+by the caller — and return the port's tensors and objects on ``device``,
+the card unless the caller names another.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,10 +16,15 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from lqp_py_tpu_torch.config import BoxQPConfig
 from lqp_py_tpu_torch.models.box_qp import BoxQPPrepared
+from lqp_py_tpu_torch.models.train import LinearQP
+from lqp_py_tpu_torch.nn import LinearBoxQP
 from lqp_py_tpu_torch.ops.linalg import KKTFactors
 from lqp_py_tpu_torch.types import BoxQPSolution
 from lqp_py_tpu_torch.utils.generators import QPData
+
+CUDA = torch.device("cuda")
 
 
 def _t(a, device, dtype=None) -> Optional[torch.Tensor]:
@@ -28,7 +34,7 @@ def _t(a, device, dtype=None) -> Optional[torch.Tensor]:
 
 
 def problem_from_numpy(Q, p, A=None, b=None, lb=None, ub=None, *,
-                       device="cpu", dtype: Optional[torch.dtype] = None
+                       device=CUDA, dtype: Optional[torch.dtype] = None
                        ) -> QPData:
     """Problem data as tensors on ``device`` (in ``dtype`` if given, else
     in each array's own)."""
@@ -44,7 +50,7 @@ def _factors_from_numpy(f: Mapping, device) -> KKTFactors:
                       WS=_t(f.get("WS"), device), P=_t(f.get("P"), device))
 
 
-def prepared_from_numpy(d: Mapping, device="cpu") -> BoxQPPrepared:
+def prepared_from_numpy(d: Mapping, device=CUDA) -> BoxQPPrepared:
     """A ``BoxQPPrepared`` from the fields of one (``H``, ``As``, ``bs``,
     ``lbs``, ``ubs``, ``D``, ``E``, ``rho0``, and ``factors`` as a mapping
     of ``KKTFactors`` fields; a ``mode`` other than 'inverse' raises)."""
@@ -59,7 +65,7 @@ def prepared_from_numpy(d: Mapping, device="cpu") -> BoxQPPrepared:
         factors=_factors_from_numpy(d["factors"], device))
 
 
-def solution_from_numpy(d: Mapping, device="cpu") -> BoxQPSolution:
+def solution_from_numpy(d: Mapping, device=CUDA) -> BoxQPSolution:
     """A ``BoxQPSolution`` from the fields of one (``iterations`` becomes a
     Python int)."""
     return BoxQPSolution(
@@ -71,3 +77,29 @@ def solution_from_numpy(d: Mapping, device="cpu") -> BoxQPSolution:
         converged=_t(d["converged"], device),
         primal_infeasible=_t(d.get("primal_infeasible"), device),
         residual_trace=_t(d.get("residual_trace"), device))
+
+
+def linear_qp_from_numpy(params, device=CUDA,
+                         dtype: Optional[torch.dtype] = None) -> LinearQP:
+    """A ``LinearQP`` from a ``LinearQPParams`` of numpy arrays (``W``
+    (n_features, n_x) and ``bias`` (n_x,), the same layout)."""
+    return LinearQP(_t(params.W, device, dtype), _t(params.bias, device,
+                                                    dtype))
+
+
+def linear_box_qp_from_flax(params: Mapping,
+                            config: BoxQPConfig = BoxQPConfig(),
+                            device=CUDA, dtype: Optional[torch.dtype] = None
+                            ) -> LinearBoxQP:
+    """A ``LinearBoxQP`` from the flax parameters of the JAX package's
+    ``LinearBoxQP`` as numpy arrays, ``{"cost_head": {"kernel", "bias"}}``.
+    The Dense kernel is (n_features, n_x); ``nn.Linear.weight`` is its
+    transpose."""
+    kernel = _t(params["cost_head"]["kernel"], device, dtype)
+    bias = _t(params["cost_head"]["bias"], device, dtype)
+    model = LinearBoxQP(kernel.shape[0], kernel.shape[1], config=config,
+                        device=device, dtype=kernel.dtype)
+    with torch.no_grad():
+        model.cost_head.weight.copy_(kernel.T)
+        model.cost_head.bias.copy_(bias)
+    return model

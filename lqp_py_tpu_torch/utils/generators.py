@@ -5,7 +5,8 @@ ill-conditioned Q with sparse equality rows).
 
 The distributions are the JAX package's; the streams are not: a
 ``torch.Generator`` seeded with the same integer draws other numbers than
-``jax.random``.  Tests that compare the two packages make their data once
+``jax.random``.  The tensors are made on ``device``, the card unless the
+caller names another.  Tests that compare the two packages make their data once
 (with numpy or the JAX generators) and hand it to both.
 """
 
@@ -29,7 +30,7 @@ class QPData(NamedTuple):
 
 def create_qp_data(n_x: int, n_batch: int, n_samples: Optional[int] = None,
                    seed: int = 0, dtype=torch.float32,
-                   device="cpu") -> QPData:
+                   device=torch.device("cuda")) -> QPData:
     """Well-conditioned random box QPs: SPD Q = L'L/n_samples, a
     sum-to-one equality row, box bounds uniform in +/-[1, 2]."""
     if n_samples is None:
@@ -50,7 +51,7 @@ def create_qp_data(n_x: int, n_batch: int, n_samples: Optional[int] = None,
 
 def generate_hard_qp(n_x: int, n_batch: int, prob: float = 0.15,
                      seed: int = 0, dtype=torch.float64,
-                     device="cpu") -> QPData:
+                     device=torch.device("cuda")) -> QPData:
     """Hard QP set: masked-normal Q = M'M + 1e-2 I, round(sqrt(n_x)) sparse
     equality rows (an all-zero row gets its first entry forced on), and
     bounds x0 -/+ U(0, 1) around a point x0 with A x0 = b."""

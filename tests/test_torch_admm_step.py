@@ -129,7 +129,7 @@ def _case_data(name):
 
 
 def _port(data, **cfg):
-    return T.solve_box_qp(*problem_from_numpy(*data),
+    return T.solve_box_qp(*problem_from_numpy(*data, device="cpu"),
                           config=T.BoxQPConfig(**cfg))
 
 

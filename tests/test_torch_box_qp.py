@@ -44,7 +44,8 @@ def _fields(obj):
 def _both(data, dtype=np.float64, **cfg):
     d = _np(data, dtype)
     js = J.solve_box_qp(*_jax(d), config=J.BoxQPConfig(**cfg))
-    ts = T.solve_box_qp(*problem_from_numpy(*d), config=T.BoxQPConfig(**cfg))
+    ts = T.solve_box_qp(*problem_from_numpy(*d, device="cpu"),
+                        config=T.BoxQPConfig(**cfg))
     return js, ts
 
 
@@ -74,7 +75,8 @@ def test_f64_hard_family_with_adaptive_rho_matches_jax():
     js, ts = _both(data, **cfg)
     _assert_same_solve(js, ts)
     # Adaptive rho fired: some element ends away from its initial rho.
-    _, _, rho0 = tbox._prep_h(*problem_from_numpy(*_np(data, np.float64)),
+    _, _, rho0 = tbox._prep_h(*problem_from_numpy(*_np(data, np.float64),
+                                                 device="cpu"),
                               T.BoxQPConfig(**cfg), pad=98)
     assert not torch.allclose(ts.rho, rho0)
 
@@ -143,7 +145,8 @@ def test_warm_start_and_residual_trace_match_jax():
     p2 = p + 0.05 * np.random.default_rng(4).standard_normal(p.shape)
     js = J.solve_box_qp(*_jax((Q, p2, A, b, lb, ub)),
                         config=J.BoxQPConfig(**cfg), warm_start=js0)
-    ts = T.solve_box_qp(*problem_from_numpy(Q, p2, A, b, lb, ub),
+    ts = T.solve_box_qp(*problem_from_numpy(Q, p2, A, b, lb, ub,
+                                           device="cpu"),
                         config=T.BoxQPConfig(**cfg), warm_start=ts0)
     _assert_same_solve(js, ts)
     assert ts.iterations < ts0.iterations
@@ -158,7 +161,8 @@ def test_warm_start_and_residual_trace_match_jax():
 
 def test_verbose_prints_each_check_and_short_trace_keeps_empty_rows(capsys):
     Q, p, A, b, lb, ub = create_qp_data(20, 2, seed=5, dtype=jnp.float64)
-    sol = T.solve_box_qp(*problem_from_numpy(Q, p, A, b, lb, ub),
+    sol = T.solve_box_qp(*problem_from_numpy(Q, p, A, b, lb, ub,
+                                            device="cpu"),
                          config=T.BoxQPConfig(verbose=True,
                                               residual_trace=16))
     lines = capsys.readouterr().out.splitlines()
@@ -173,7 +177,7 @@ def test_verbose_prints_each_check_and_short_trace_keeps_empty_rows(capsys):
 def test_prepared_solve_equals_direct_solve(dtype):
     Q, p, A, b, lb, ub = problem_from_numpy(
         *_np(create_qp_data(200, 4, seed=6, dtype=jnp.float64), np.float64),
-        dtype=dtype)
+        dtype=dtype, device="cpu")
     cfg = T.BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5)
     direct = T.solve_box_qp(Q, p, A, b, lb, ub, config=cfg)
     prep = T.prepare_box_qp(Q, A, b, lb, ub, config=cfg)
@@ -207,7 +211,7 @@ def test_state_carried_over_from_jax():
     cfg = dict(eps_abs=1e-6, eps_rel=1e-6)
     jprep = J.prepare_box_qp(*_jax((Q, A, b, lb, ub)),
                              config=J.BoxQPConfig(**cfg))
-    tprep = prepared_from_numpy(_prepared_fields(jprep))
+    tprep = prepared_from_numpy(_prepared_fields(jprep), device="cpu")
 
     js0 = J.solve_box_qp_prepared(jprep, jnp.asarray(p),
                                   config=J.BoxQPConfig(**cfg))
@@ -217,7 +221,8 @@ def test_state_carried_over_from_jax():
 
     # Warm start from the JAX solution itself, carried over.
     warm = solution_from_numpy({k: None if v is None else np.asarray(v)
-                                for k, v in _fields(js0).items()})
+                                for k, v in _fields(js0).items()},
+                               device="cpu")
     assert warm.iterations == int(js0.iterations)
     p2 = p * 1.02
     js = J.solve_box_qp_prepared(jprep, jnp.asarray(p2),
@@ -230,7 +235,8 @@ def test_state_carried_over_from_jax():
     cfg_e = dict(cfg, use_pallas_step=True)
     jprep_e = J.prepare_box_qp(*_jax((Q, A, b, lb, ub)),
                                config=J.BoxQPConfig(**cfg_e))
-    tprep_e = prepared_from_numpy(_prepared_fields(jprep_e))
+    tprep_e = prepared_from_numpy(_prepared_fields(jprep_e),
+                                  device="cpu")
     assert tprep_e.factors.P.shape == (4, 256, 256)
     js_e = J.solve_box_qp_prepared(jprep_e, jnp.asarray(p),
                                    config=J.BoxQPConfig(**cfg_e))
@@ -249,7 +255,8 @@ def test_prepared_at_other_alignment_equals_direct_solve(prep_early,
     cached operand and factors are resized, P built where missing) and
     gives the direct solve of the solve-time config."""
     Q, p, A, b, lb, ub = problem_from_numpy(
-        *_np(create_qp_data(300, 3, seed=21, dtype=jnp.float64), np.float64))
+        *_np(create_qp_data(300, 3, seed=21, dtype=jnp.float64), np.float64),
+        device="cpu")
     base = dict(eps_abs=1e-8, eps_rel=1e-8)
     prep = T.prepare_box_qp(Q, A, b, lb, ub, config=T.BoxQPConfig(
         use_pallas_step=prep_early, **base))
@@ -266,7 +273,7 @@ def test_prepared_at_other_alignment_equals_direct_solve(prep_early,
 
 def test_generate_hard_qp_structure():
     n, B = 50, 3
-    Q, p, A, b, lb, ub = generate_hard_qp_t(n, B, seed=4)
+    Q, p, A, b, lb, ub = generate_hard_qp_t(n, B, seed=4, device="cpu")
     m = round(n ** 0.5)
     assert Q.shape == (B, n, n) and A.shape == (B, m, n)
     assert p.shape == lb.shape == ub.shape == (B, n) and b.shape == (B, m)
@@ -277,8 +284,9 @@ def test_generate_hard_qp_structure():
     assert bool((torch.linalg.eigvalsh(Q) >= 1e-2 - 1e-9).all())
     # Same seed, same data; another seed, other data.
     assert all(torch.equal(a, c) for a, c in
-               zip((Q, p, A, b, lb, ub), generate_hard_qp_t(n, B, seed=4)))
-    assert not torch.equal(Q, generate_hard_qp_t(n, B, seed=5).Q)
+               zip((Q, p, A, b, lb, ub), generate_hard_qp_t(n, B, seed=4,
+                                                         device="cpu")))
+    assert not torch.equal(Q, generate_hard_qp_t(n, B, seed=5, device="cpu").Q)
 
 
 @pytest.mark.parametrize("cfg", [
@@ -286,7 +294,8 @@ def test_generate_hard_qp_structure():
 ], ids=["polish", "acceleration", "cholesky"])
 def test_unported_options_raise(cfg):
     Q, p, A, b, lb, ub = problem_from_numpy(
-        *_np(create_qp_data(10, 2, dtype=jnp.float64), np.float64))
+        *_np(create_qp_data(10, 2, dtype=jnp.float64), np.float64),
+        device="cpu")
     config = T.BoxQPConfig(**cfg)
     with pytest.raises(NotImplementedError, match="later slice"):
         T.solve_box_qp(Q, p, A, b, lb, ub, config=config)

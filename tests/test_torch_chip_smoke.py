@@ -1,0 +1,111 @@
+"""chip_smoke.py rehearsed on the CPU at a tiny size.
+
+The script's checks, counters and output lines run end to end with
+``torch.cuda`` stubbed (events on the host clock) and each kernel wrapper
+replaced by its plain version plus a launch count, so that a fault in the
+script's own Python shows here and not first on the card.  Its numbers mean
+nothing on the CPU; the gate on the early-exit GEMV's 90%/0% time ratio,
+which only the kernel can meet, is the one check left out.
+"""
+
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+from lqp_py_tpu_torch.ops import linalg as tlin
+from lqp_py_tpu_torch.ops.kernels import _build
+from lqp_py_tpu_torch.ops.kernels import admm_step as gk
+from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
+from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+class _HostEvent:
+    def __init__(self, enable_timing=True):
+        self.t = None
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def _counting(module, plain):
+    def wrapper(*args):
+        module.LAUNCHES += 1
+        return plain(*args)
+    return wrapper
+
+
+def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    for name, value in (("is_available", lambda: True),
+                        ("set_device", lambda d: None),
+                        ("get_device_name", lambda i=0: "rehearsal"),
+                        ("device_count", lambda: 1),
+                        ("synchronize", lambda *a: None),
+                        ("_sleep", lambda cycles: None),
+                        ("Event", _HostEvent)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    monkeypatch.setattr(cs, "subprocess", types.SimpleNamespace(
+        run=lambda *a, **k: types.SimpleNamespace(stdout="rehearsal, 0 W")))
+    monkeypatch.setattr(_build, "load_library", lambda: None)
+    monkeypatch.setattr(_build, "library_path", lambda: Path("stub.so"))
+    for mod in (sk, gk, bk):
+        monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)
+    leaf = _counting(sk, sk.sweep_spd_inverse_ref)
+    monkeypatch.setattr(sk, "sweep_spd_inverse", leaf)
+    monkeypatch.setattr(tlin, "sweep_spd_inverse", leaf)
+    monkeypatch.setattr(gk, "gemv_early_exit",
+                        _counting(gk, gk.gemv_early_exit_ref))
+    monkeypatch.setattr(bk, "block_spd_inverse",
+                        _counting(bk, bk.block_spd_inverse_ref))
+    check = cs._check
+    monkeypatch.setattr(cs, "_check", lambda cond, msg: check(
+        cond or "frozen panels are read" in msg, msg))
+    for name, value in (("N", 200), ("B", 8), ("N_PAD", 256), ("N_HARD", 2),
+                        ("N_X2", 100), ("N_BATCH2", 16), ("MINI2", 4),
+                        ("DEVICE", "cpu")):
+        monkeypatch.setattr(cs, name, value)
+
+    cs.main()
+    lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "rehearsal", "count": 1}}
+    kernels = json.loads(lines[-2])["kernels"]
+    assert [k["name"] for k in kernels] == [
+        "sweep_spd_inverse", "gemv_early_exit", "block_spd_inverse"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in kernels:
+        assert keys <= set(k), k["name"]
+        assert k["launches"] > 0 and k["bound_by"] in ("bytes", "operations")
+        assert (REPO / k["source"]).exists()
+    phases = {line.split()[1] for line in lines if line.startswith("phase")}
+    assert phases == {str(i) for i in range(1, 12)}
+
+
+def test_chip_smoke_without_cuda_fails_before_any_result(tmp_path):
+    """Without a card the script exits non-zero and prints nothing; alone
+    in a directory (no package beside it) it fails too."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd in (REPO, tmp_path):
+        res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0 and res.stdout == "", cwd

@@ -2,7 +2,8 @@
 
 Every test here needs an NVIDIA GPU and skips without one (the kernels are
 CUDA C++ with no CPU mode; their plain versions are held against the JAX
-package in tests/test_torch_linalg.py and tests/test_torch_admm_step.py).
+package in tests/test_torch_linalg.py, tests/test_torch_admm_step.py and
+tests/test_torch_block_inverse.py).
 This file imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -11,8 +12,10 @@ This file imports no JAX, so it runs on a machine that has none:
 import pytest
 import torch
 
-from lqp_py_tpu_torch import BoxQPConfig, solve_box_qp
+from lqp_py_tpu_torch import BoxQPConfig, boxqp, solve_box_qp
+from lqp_py_tpu_torch.models import box_qp_grad as grads
 from lqp_py_tpu_torch.ops.kernels import admm_step as gk
+from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
 from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
 from lqp_py_tpu_torch.utils.generators import create_qp_data
 
@@ -60,7 +63,7 @@ def test_sweep_kernel_rejects_what_it_does_not_take(cuda, make):
 
 
 def test_solve_on_cuda_matches_cpu(cuda):
-    data = create_qp_data(200, 8, seed=3)
+    data = create_qp_data(200, 8, seed=3, device="cpu")
     cfg = BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False)
     cpu = solve_box_qp(*data, config=cfg)
     before = sk.LAUNCHES
@@ -115,7 +118,7 @@ def test_gemv_kernel_rejects_what_it_does_not_take(cuda, make):
 
 
 def test_early_exit_solve_on_cuda_matches_cpu(cuda):
-    data = create_qp_data(200, 8, seed=3)
+    data = create_qp_data(200, 8, seed=3, device="cpu")
     cfg = BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False,
                       use_pallas_step=True)
     cpu = solve_box_qp(*data, config=cfg)
@@ -124,3 +127,74 @@ def test_early_exit_solve_on_cuda_matches_cpu(cuda):
     assert gk.LAUNCHES - before == gpu.iterations
     assert bool(gpu.converged.all()) and bool(cpu.converged.all())
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4
+
+
+def _equilibrated_spd(B, n, device, seed=0):
+    """(Q + I) of a Wishart Q, Jacobi-equilibrated: the block inverse's
+    input contract."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((B, 2 * n, n), generator=g, device=device,
+                    dtype=torch.float64)
+    H = (a.mT @ a) / (2 * n) + torch.eye(n, dtype=torch.float64,
+                                         device=device)
+    d = H.diagonal(dim1=-2, dim2=-1).rsqrt()
+    return (H * d[:, :, None] * d[:, None, :]).float()
+
+
+@pytest.mark.parametrize("B,n", [(4, 384), (2, 1024), (3, 128)])
+def test_block_inverse_kernel_matches_plain_version(cuda, B, n):
+    H = _equilibrated_spd(B, n, cuda)
+    before = bk.LAUNCHES
+    out = bk.block_spd_inverse(H)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES == before + 1
+    ref = bk.block_spd_inverse_ref(H)
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert (H.double() @ out.double() - eye).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: _equilibrated_spd(2, 256, d).double(),
+    lambda d: _equilibrated_spd(2, 256, d).mT,
+    lambda d: _equilibrated_spd(2, 256, d)[:, :200, :200],
+], ids=["float64", "non-contiguous", "n-not-128"])
+def test_block_inverse_kernel_rejects_what_it_does_not_take(cuda, make):
+    before = bk.LAUNCHES
+    with pytest.raises(ValueError):
+        bk.block_spd_inverse(make(cuda))
+    assert bk.LAUNCHES == before
+
+
+def test_fixed_point_backward_leaf_launches(cuda):
+    """One fixed-point backward at n=300: the masked system is padded to
+    384 and _schur_solve_rec splits at 128, a 128 leaf and a 256 inverse
+    of two: 3 leaf launches.  The layer's gradients on the card match the
+    CPU's (plain leaf) on the card forward's residual set, and the CPU
+    layer's own gradients."""
+    data = create_qp_data(300, 4, seed=5, device="cpu")
+    Q, p, A, b, lb, ub = (t.to(cuda) for t in data)
+    Q.requires_grad_(True)
+    p.requires_grad_(True)
+    cfg = BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False)
+    x = boxqp(Q, p, A, b, lb, ub, config=cfg)
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+    before = sk.LAUNCHES
+    gQ, gp = torch.autograd.grad((w.to(cuda) * x).sum(), (Q, p))
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES - before == 3
+    assert bool(torch.isfinite(gQ).all()) and bool(torch.isfinite(gp).all())
+
+    sol = solve_box_qp(*(t.detach() for t in (Q, p, A, b, lb, ub)),
+                       config=cfg)
+    res = dict(x=sol.x, u=sol.u, lams=sol.lams, nus=sol.nus, Q=Q.detach(),
+               A=A, lb=lb, ub=ub, rho=sol.rho)
+    direct = grads.box_qp_grad_fixed_point(
+        w, **{k: v.cpu() for k, v in res.items()}, reg=cfg.backward_reg)
+    Qc, pc = data[0].requires_grad_(True), data[1].requires_grad_(True)
+    xc = boxqp(Qc, pc, *data[2:], config=cfg)
+    layer = torch.autograd.grad((w * xc).sum(), (Qc, pc))
+    for card, cpu, tol in ((gQ, direct[0], 1e-4), (gp, direct[1], 1e-4),
+                           (gQ, layer[0], 1e-3), (gp, layer[1], 1e-3)):
+        err = (card.cpu() - cpu).abs().max() / cpu.abs().max()
+        assert err <= tol, (tuple(cpu.shape), tol, err.item())

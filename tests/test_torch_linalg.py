@@ -153,3 +153,48 @@ def test_chol_solve_matches_jax(k):
     np.testing.assert_allclose(ours, np.linalg.solve(
         H, rhs if k else rhs[..., None]).reshape(ours.shape), rtol=1e-10,
         atol=1e-12)
+
+
+@pytest.mark.parametrize("n,dtype,equilibrate,k,leaves,rtol", [
+    (300, torch.float32, True, 3, 3, 1e-4),   # padded to 384: 1 + 2 leaves
+    (256, torch.float32, False, 1, 2, 1e-4),  # no padding, one inverse
+    (40, torch.float32, True, 2, 0, 1e-5),    # batch-major Gauss-Jordan
+    (300, torch.float64, True, 3, 0, 1e-11),  # Cholesky
+])
+def test_spd_solve_fast_matches_torch_solve(n, dtype, equilibrate, k,
+                                            leaves, rtol, monkeypatch):
+    """Against ``torch.linalg.solve`` in float64.  float32 at n=300 takes
+    the solve-only recursion with the plain leaf: 384 splits at 128, a
+    128 leaf and a 256 inverse of two leaves."""
+    leaf_calls = []
+    orig = tlin.sweep_spd_inverse
+    monkeypatch.setattr(tlin, "sweep_spd_inverse",
+                        lambda X: leaf_calls.append(tuple(X.shape))
+                        or orig(X))
+    H = _wishart(8, 2, n)
+    R = np.random.default_rng(9).standard_normal((2, n, k))
+    X = tlin.spd_solve_fast(torch.tensor(H, dtype=dtype),
+                            torch.tensor(R, dtype=dtype),
+                            equilibrate=equilibrate, precision="high")
+    assert X.dtype == dtype and X.shape == (2, n, k)
+    ref = torch.linalg.solve(torch.from_numpy(H), torch.from_numpy(R))
+    err = (X.double() - ref).abs().max() / ref.abs().max()
+    assert err <= rtol, err.item()
+    assert leaf_calls == [(2, 128, 128)] * leaves
+
+
+def test_schur_solve_rec_matches_jax_recursion():
+    """The solve-only recursion against the JAX package's at n=384 in
+    float64, with Cholesky leaves on both sides (the JAX recursion takes
+    any leaf)."""
+    import functools
+    H = _wishart(10, 2, 384)
+    R = np.random.default_rng(11).standard_normal((2, 384, 2))
+    ours = tlin._schur_solve_rec(torch.from_numpy(H), torch.from_numpy(R),
+                                 leaf=tlin.spd_inverse).numpy()
+    ee = functools.partial(jnp.einsum, precision="highest")
+    theirs = np.asarray(jlin._schur_solve_rec(
+        jnp.asarray(H), jnp.asarray(R), ee, leaf=jlin.spd_inverse))
+    np.testing.assert_allclose(ours, theirs, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ours, np.linalg.solve(H, R), rtol=1e-9,
+                               atol=1e-11)

@@ -75,10 +75,22 @@ def test_vector_layout_helpers_match_jax():
             jtypes.as_vector(jnp.asarray(bad.numpy()))
 
 
+PORT_MODULES = sorted(
+    ".".join(f.relative_to(REPO).with_suffix("").parts)
+    for f in (REPO / "lqp_py_tpu_torch").rglob("*.py")
+    if f.name != "__init__.py")
+
+
 def test_import_leaves_jax_out():
-    code = ("import sys, lqp_py_tpu_torch, lqp_py_tpu_torch.utils.convert; "
-            "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'flax' not in sys.modules, 'flax imported'")
+    assert {"lqp_py_tpu_torch.models.box_qp_grad",
+            "lqp_py_tpu_torch.models.layers", "lqp_py_tpu_torch.models.train",
+            "lqp_py_tpu_torch.models._stateful", "lqp_py_tpu_torch.nn",
+            "lqp_py_tpu_torch.ops.kernels.block_inverse"} <= set(PORT_MODULES)
+    code = ("import sys, importlib\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'lqp_py_tpu')]\n"
+            "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -178,3 +190,26 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
             _build.load_library()
     finally:
         _build.load_library.cache_clear()
+
+
+def test_data_entry_points_default_to_the_card():
+    """Problem generators and converters put their tensors on the card
+    unless the caller names another device; without CUDA a call that names
+    none raises."""
+    import inspect
+
+    from lqp_py_tpu_torch import nn as tnn
+    from lqp_py_tpu_torch.models import train as ttrain
+    from lqp_py_tpu_torch.utils import convert, generators
+
+    fns = [generators.create_qp_data, generators.generate_hard_qp,
+           convert.problem_from_numpy, convert.prepared_from_numpy,
+           convert.solution_from_numpy, convert.linear_qp_from_numpy,
+           convert.linear_box_qp_from_flax, ttrain.init_params,
+           tnn.LinearBoxQP.__init__]
+    for fn in fns:
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default) == torch.device("cuda"), fn.__name__
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            generators.create_qp_data(4, 2)
