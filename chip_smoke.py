@@ -9,9 +9,12 @@ and checks each against its plain PyTorch version.  Then it serves the reference
 (B=128 box QPs of n=1000, float32, eps_abs = eps_rel = 1e-5): three direct
 requests, one of them checked against a float64 solve, then a prepared
 problem answering four requests with a drifting cost vector and warm
-starts (phases 1-6).  Phase 7 times the early-exit GEMV against its plain
-version at 0/50/90% of the batch converged, on the device alone and at the
-host's pace; phase 8 solves the straggler serving batch of
+starts (phases 1-6).  Phase 3 also holds the leaf on a leading-block view
+(read in place) bitwise to the leaf on its copy, fails if the leaf spills
+registers, and times it on the device alone and at the host's pace.
+Phase 7 times the early-exit GEMV against its plain version at 0/50/90% of
+the batch converged, on the device alone and at the host's pace, and in
+turns with ``P @ r``; phase 8 solves the straggler serving batch of
 experiments/experiment_straggler.py (8 hard problems among 120 ridged easy
 ones, B=128, n=1000) lock-step and with the early-exit step, serves it
 prepared, and reports the share of the batch the early-exit GEMV found
@@ -130,10 +133,22 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
 
     # 3. Kernel vs plain at the shape the recursion gives the leaf.
+    attrs = _build.kernel_attributes("sweep_spd_inverse")
+    _check(attrs["local_bytes"] == 0, f"the leaf kernel spills to local "
+           f"memory: {attrs}")
     g = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((B, 2 * LEAF, LEAF), generator=g, device=dev)
     with highest_matmul_precision():
         H = (a.mT @ a) / (2 * LEAF) + torch.eye(LEAF, device=dev)
+        # The recursion hands the leaf leading-block views, read in place.
+        a2 = torch.randn((B, 4 * LEAF, 2 * LEAF), generator=g, device=dev)
+        view = ((a2.mT @ a2) / (4 * LEAF))[:, :LEAF, :LEAF]
+    view.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    same_view = torch.equal(sk.sweep_spd_inverse(view),
+                            sk.sweep_spd_inverse(view.contiguous()))
+    _check(same_view, "the leaf kernel on a leading-block view differs from "
+           "the kernel on its contiguous copy")
+    del a2, view
     Hk = sk.sweep_spd_inverse(H)
     Hr = sk.sweep_spd_inverse_ref(H)
     torch.cuda.synchronize()
@@ -149,13 +164,30 @@ def main():
     _check(rel <= 1e-4, f"kernel vs plain relative difference {rel:.3e}")
     _check(res_k <= 1e-4 and res_r <= 1e-4,
            f"leaf residuals kernel {res_k:.3e}, plain {res_r:.3e}")
-    # Turns: plain, kernel, kernel, plain (after one warm-up each).
+    # An ill-conditioned leaf (cond 1e4): the kernel's error against the
+    # float64 inverse at most twice the plain version's.
+    q, _ = torch.linalg.qr(torch.randn((B, LEAF, LEAF), generator=g,
+                                       device=dev, dtype=torch.float64))
+    lam = torch.logspace(-4, 0, LEAF, dtype=torch.float64, device=dev)
+    Hc64 = (q * lam) @ q.mT
+    Hc = (0.5 * (Hc64 + Hc64.mT)).float()
+    invc = torch.linalg.inv(Hc.double())
+    errc_k = (sk.sweep_spd_inverse(Hc).double() - invc).abs().max().item()
+    errc_r = (sk.sweep_spd_inverse_ref(Hc).double() - invc).abs().max().item()
+    _check(errc_k <= 2 * errc_r, f"cond 1e4 leaf: kernel error {errc_k:.3e} "
+           f"against plain {errc_r:.3e}")
+    del q, Hc64, Hc, invc
+    # Turns: plain, kernel, kernel, plain (after one warm-up each); the
+    # kernel on the device alone (stream held) and at the host's pace.
     sk.sweep_spd_inverse(H), sk.sweep_spd_inverse_ref(H)
     t_p1 = _event_ms(lambda: sk.sweep_spd_inverse_ref(H), 5)
-    t_k1 = _event_ms(lambda: sk.sweep_spd_inverse(H), 20)
-    t_k2 = _event_ms(lambda: sk.sweep_spd_inverse(H), 20)
+    t_k1 = _event_ms(lambda: sk.sweep_spd_inverse(H), 50, queued=True)
+    h_k1 = _event_ms(lambda: sk.sweep_spd_inverse(H), 50)
+    h_k2 = _event_ms(lambda: sk.sweep_spd_inverse(H), 50)
+    t_k2 = _event_ms(lambda: sk.sweep_spd_inverse(H), 50, queued=True)
     t_p2 = _event_ms(lambda: sk.sweep_spd_inverse_ref(H), 5)
     kernel_ms, plain_ms = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+    paced_ms = (h_k1 + h_k2) / 2
 
     def chol_inv(X):
         return torch.cholesky_inverse(torch.linalg.cholesky(X))
@@ -168,11 +200,16 @@ def main():
     print(f"phase 3 leaf ({B},{LEAF},{LEAF}) f32: max|kernel-plain| "
           f"{max_abs:.3e} (rel {rel:.3e} <= 1e-4); |H Hinv - I|max kernel "
           f"{res_k:.3e}, plain {res_r:.3e} (<= 1e-4); |Hinv - inv_f64|max "
-          f"kernel {err_k:.3e}, plain {err_r:.3e}; kernel {kernel_ms:.4f} ms "
-          f"({t_k1:.4f}, {t_k2:.4f}), plain {plain_ms:.4f} ms "
-          f"({t_p1:.4f}, {t_p2:.4f}), cholesky_inverse(cholesky) "
-          f"{leaf_lib_ms:.4f} ms; bound {leaf_bound[0]:.4f} ms by "
-          f"{leaf_bound[1]}")
+          f"kernel {err_k:.3e}, plain {err_r:.3e}; cond 1e4: kernel "
+          f"{errc_k:.3e}, plain {errc_r:.3e} (ratio {errc_k / errc_r:.3f} "
+          f"<= 2); leading-block view bitwise the contiguous copy; "
+          f"{attrs['regs']} registers, "
+          f"{attrs['local_bytes']} local bytes; device time kernel "
+          f"{kernel_ms:.4f} ms ({t_k1:.4f}, {t_k2:.4f}), host-paced "
+          f"{paced_ms:.4f} ms ({h_k1:.4f}, {h_k2:.4f}), plain "
+          f"{plain_ms:.4f} ms ({t_p1:.4f}, {t_p2:.4f}), "
+          f"cholesky_inverse(cholesky) {leaf_lib_ms:.4f} ms; bound "
+          f"{leaf_bound[0]:.4f} ms by {leaf_bound[1]}")
 
     # 4. One factorization at the serving shape (bench.py's probe).
     data0 = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
@@ -291,8 +328,16 @@ def main():
 
             if frac == 0.0:
                 # Nothing converged: one batched matmul is the function.
-                gemv_lib_ms = _event_ms(lambda: P7 @ r7[..., None], 20,
-                                        True)
+                # Kernel and call in turns, so that one run settles which
+                # is faster.
+                def call():
+                    P7 @ r7[..., None]
+
+                call()
+                vs_call = [(_event_ms(kern, 20, True),
+                            _event_ms(call, 20, True)) for _ in range(3)]
+                gemv_lib_ms = sum(c for _, c in vs_call) / len(vs_call)
+                gemv_turn_ms = sum(k for k, _ in vs_call) / len(vs_call)
             times = {}
             for queued in (True, False):
                 t_p1 = _event_ms(plain, 20, queued)
@@ -326,8 +371,12 @@ def main():
           f"({bytes0 / 1e6:.1f} MB); 90%/0% device time ratio {ratio90:.3f} "
           f"(< 0.5), host-paced "
           f"{gemv[0.9]['paced_ms'] / gemv[0.0]['paced_ms']:.3f}; bound "
-          f"{gemv_bound[0]:.4f} ms by {gemv_bound[1]}; P @ r (one batched "
-          f"matmul) {gemv_lib_ms:.4f} ms")
+          f"{gemv_bound[0]:.4f} ms by {gemv_bound[1]}; in turns with P @ r "
+          f"(one batched matmul), kernel/call ms ["
+          + ", ".join(f"{k:.4f}/{c:.4f}" for k, c in vs_call)
+          + f"]: kernel {gemv_turn_ms:.4f}, call {gemv_lib_ms:.4f}, ratio "
+          f"{gemv_turn_ms / gemv_lib_ms:.3f} (the kernel is "
+          f"{'slower' if gemv_turn_ms > gemv_lib_ms else 'no slower'})")
     _check(ratio90 < 0.5, f"90%-converged GEMV takes {ratio90:.3f} of the "
            f"0% time: frozen panels are read")
 
@@ -486,6 +535,7 @@ def main():
             for k in order:
                 t9[k].append(_event_ms(fns9[k], reps9[k]))
     ms9 = {k: sum(v) / len(v) for k, v in t9.items()}
+    attrs9 = _build.kernel_attributes("block_spd_inverse")
     # n^3 flops per SPD inverse, as for the leaf (the unsymmetric sweep
     # does 2n^3: that is the design's cost, not the function's).
     block_bound = _bound(B * N_PAD ** 3, 2 * 4 * B * N_PAD ** 2)
@@ -494,7 +544,8 @@ def main():
     print(f"phase 9 block inverse ({B},{N_PAD},{N_PAD}) f32: "
           f"{launches9} launch; max|kernel-plain| {max_abs9:.3e} (rel "
           f"{rel9:.3e} <= 1e-4); |H Hinv - I|max kernel {res9_k:.3e}, plain "
-          f"{res9_r:.3e} (<= 1e-4); ms " + ", ".join(
+          f"{res9_r:.3e} (<= 1e-4); {attrs9['regs']} registers, "
+          f"{attrs9['local_bytes']} local bytes; ms " + ", ".join(
               f"{k} {ms9[k]:.4f} ({', '.join(f'{t:.4f}' for t in t9[k])})"
               for k in fns9) + f"; bound {block_bound[0]:.4f} ms by "
           f"{block_bound[1]} (n^3 B flops at {F32_FLOPS / 1e12:g} TFLOP/s; "
@@ -644,9 +695,10 @@ def main():
         "replaces": "lqp_py_tpu/ops/pallas/spd_inverse.py:53",
         "launches": launches, "launches_straggler": launches8_sweep,
         "launches_fwd_bwd": launches10, "launches_train": launches11,
-        "max_abs_err": max_abs, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": leaf_bound[0], "bound_by": leaf_bound[1],
-        "library_ms": leaf_lib_ms}, {
+        "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
+        "plain_ms": plain_ms, "bound_ms": leaf_bound[0],
+        "bound_by": leaf_bound[1], "library_ms": leaf_lib_ms,
+        "regs": attrs["regs"], "local_bytes": attrs["local_bytes"]}, {
         "name": "gemv_early_exit", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/gemv_early_exit.cu",
         "replaces": "lqp_py_tpu/ops/pallas/admm_step.py:52",
@@ -654,7 +706,7 @@ def main():
         "max_abs_err": max(v["err"] for v in gemv.values()),
         "ms": gemv[0.0]["ms"], "plain_ms": gemv[0.0]["plain_ms"],
         "bound_ms": gemv_bound[0], "bound_by": gemv_bound[1],
-        "library_ms": gemv_lib_ms,
+        "library_ms": gemv_lib_ms, "ms_in_turns": gemv_turn_ms,
         "ms_50": gemv[0.5]["ms"], "plain_ms_50": gemv[0.5]["plain_ms"],
         "ms_90": gemv[0.9]["ms"], "plain_ms_90": gemv[0.9]["plain_ms"],
         "paced_ms": {f"{f:.0%}": gemv[f]["paced_ms"] for f in gemv},
@@ -669,7 +721,8 @@ def main():
         "recursion_ms": ms9["recursion"],
         "bound_ms": block_bound[0], "bound_by": block_bound[1],
         "bound_ms_3xtf32": block_bound_3xtf32,
-        "library_ms": ms9["cholesky_inverse"]}]}))
+        "library_ms": ms9["cholesky_inverse"], "regs": attrs9["regs"],
+        "local_bytes": attrs9["local_bytes"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,8 @@
 // needed; at B = 128 that is one wave on 132 SMs.  A 1024^2 matrix (4 MB)
 // does not fit in shared memory, so M lives in the output buffer and every
 // step streams it through L2.  Per step:
-//   1. D into shared memory, swept in place to -D^-1 (sweep_tile.cuh).
+//   1. D swept to -D^-1 in registers (sweep_tile.cuh, 4 x 8 elements per
+//      thread), then stored into shared memory.
 //   2. The column panel M[:,K] transposed into the scratch ct (128, n) via
 //      a padded shared-memory tile, so every later panel read is
 //      contiguous.
@@ -48,11 +49,13 @@ constexpr int kThreads = 512;
 constexpr int kKc = 32;                      // rows of a streamed panel chunk
 constexpr int kChunks = kB / kKc;            // chunks per 128x128 tile
 constexpr int kSPad = kB + 1;                // conflict-free transpose stride
+using Tile = SweepTile<32, 16>;
+static_assert(Tile::kThreads == kThreads, "one sweep thread per thread");
 
 // Shared memory, in floats.
-constexpr int kTileOff = 0;                  // 128 x 128: D, then -D^-1
-constexpr int kProwOff = kB * kB;            // 2 x 128 pivot rows
-constexpr int kAOff = kProwOff + 2 * kB;     // A tile [k][i] or transpose stage
+constexpr int kTileOff = 0;                  // 128 x 128: -D^-1
+constexpr int kPivOff = kB * kB;             // the sweep's pivot buffers
+constexpr int kAOff = kPivOff + Tile::kPivFloats;  // A tile [k][i] or stage
 constexpr int kBOff = kAOff + kB * kSPad;    // 2 x 32 x 128 streamed chunks
 constexpr size_t kSmemBytes = (size_t)(kBOff + 2 * kKc * kB) * sizeof(float);
 
@@ -147,7 +150,7 @@ block_sweep_kernel(const float* __restrict__ H, float* __restrict__ out,
                    int n) {
   extern __shared__ __align__(16) float smem[];
   float* tile = smem + kTileOff;
-  float* prow = smem + kProwOff;
+  float* piv = smem + kPivOff;
   float* As = smem + kAOff;
   float* Bs = smem + kBOff;
 
@@ -166,12 +169,16 @@ block_sweep_kernel(const float* __restrict__ H, float* __restrict__ out,
   for (int kb = 0; kb < nb; ++kb) {
     const int off = kb * kB;
 
-    // 1. D = M[K,K] -> -D^-1 in shared memory.
-    for (int e = tid; e < kB * kB; e += kThreads)
-      tile[e] = M[(size_t)(off + e / kB) * n + off + e % kB];
-    if (tid < kB) prow[tid] = M[(size_t)off * n + off + tid];
+    // 1. D = M[K,K] -> -D^-1, swept in registers, into shared memory.
+    {
+      Tile d;
+      d.load([&](int i, int j) {
+        return ld4(M + (size_t)(off + i) * n + off + j);
+      });
+      d.sweep(piv);
+      d.store([&](int i, int j, float4 v) { st4(tile + i * kB + j, v); });
+    }
     __syncthreads();
-    sweep_tile<kThreads>(tile, prow);
 
     // 2. ct[k][r] = M[r][off + k] for row tiles R != kb.
     for (int R = 0; R < nb; ++R) {
@@ -272,4 +279,14 @@ extern "C" int block_spd_inverse_f32(const float* H, float* out, float* ct,
   if (err != cudaSuccess) return (int)err;
   block_sweep_kernel<<<B, kThreads, kSmemBytes, s>>>(H, out, ct, vt, n);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread and local-memory bytes per thread of the kernel.
+extern "C" int block_spd_inverse_attributes(int* num_regs, int* local_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, block_sweep_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *num_regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return (int)cudaSuccess;
 }

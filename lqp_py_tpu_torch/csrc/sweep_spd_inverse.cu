@@ -6,17 +6,20 @@
 // every backward solve (_schur_solve_rec).  The recurrence itself is
 // sweep_tile.cuh.
 //
-// Design: one thread block per matrix (grid = B, one wave of 128 blocks on
-// the H100's 132 SMs at the solver's B = 128).  The 64 KB tile lives in
-// dynamic shared memory for all 128 steps, with 512 threads on it.  The
-// final negation is folded into the store.
+// Design: one thread block of 256 threads per matrix (grid = B, one wave
+// at the solver's B = 128 on the H100's 132 SMs).  The 64 KB tile lives in
+// registers, 8 x 8 elements per thread; only the two pivot rows of each
+// pivot pair pass through shared memory (2 KB, double-buffered), so a tile
+// takes 64 rank-2 steps with one __syncthreads() each.  The input is read
+// through its batch and row strides with float4 loads (scalar loads where
+// it is not 16-byte aligned), so the recursion's leading-block views need
+// no copy; the final negation is folded into the store.
 //
-// Bound: the 128-step dependency chain and shared-memory traffic (one load
-// and one store of every tile element per step), not device memory — each
-// matrix is read once and written once (64 KB each way).  Later work can
-// keep each thread's share of the tile in registers with only the pivot
-// row in shared memory, or fuse two pivots per pass as the Pallas leaf does
-// (rank-2 steps halve the tile read-modify-writes).
+// Bound: the arithmetic, 128 * 128^2 FMAs per matrix (two per element and
+// pivot pair), runs on one SM; the function's own bound is its bytes, each
+// matrix read once and written once (64 KB each way; 16.8 MB at B = 128).
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -25,42 +28,69 @@
 namespace {
 
 constexpr int kM = kSweepM;                  // leaf size (matrix order)
-constexpr int kThreads = 512;
-constexpr size_t kSmemBytes = (size_t)(kM * kM + 2 * kM) * sizeof(float);
+using Tile = SweepTile<16, 16>;
 
-__global__ void __launch_bounds__(kThreads)
-sweep_kernel(const float* __restrict__ H, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* tile = smem;                        // kM * kM, row-major
-  float* prow = smem + kM * kM;              // 2 * kM: pivot row, double-buffered
+template <bool kVec>
+__global__ void __launch_bounds__(Tile::kThreads)
+sweep_kernel(const float* __restrict__ H, long long batch_stride,
+             long long row_stride, float* __restrict__ out) {
+  __shared__ __align__(16) float piv[Tile::kPivFloats];
+  const float* src = H + blockIdx.x * batch_stride;
+  float* dst = out + (size_t)blockIdx.x * kM * kM;
 
-  const size_t base = (size_t)blockIdx.x * kM * kM;
-  const float* src = H + base;
-  float* dst = out + base;
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < kM * kM; e += kThreads) tile[e] = src[e];
-  if (tid < kM) prow[tid] = src[tid];        // pivot row 0
-  __syncthreads();
-
-  sweep_tile<kThreads>(tile, prow);
-
-  for (int e = tid; e < kM * kM; e += kThreads) dst[e] = -tile[e];
+  Tile t;
+  t.load([&](int i, int j) {
+    const float* s = src + i * row_stride + j;
+    if constexpr (kVec) {
+      return *reinterpret_cast<const float4*>(s);
+    } else {
+      return make_float4(s[0], s[1], s[2], s[3]);
+    }
+  });
+  t.sweep(piv);
+  t.store([&](int i, int j, float4 v) {
+    *reinterpret_cast<float4*>(dst + i * kM + j) =
+        make_float4(-v.x, -v.y, -v.z, -v.w);
+  });
 }
 
 }  // namespace
 
-// H, out: B contiguous m x m f32 matrices on the current device (m must be
-// 128).  Launches on stream s and returns cudaGetLastError(); it does not
-// synchronise.
-extern "C" int sweep_spd_inverse_f32(const float* H, float* out, int B, int m,
-                                     cudaStream_t s) {
-  if (m != kM || B < 0) return (int)cudaErrorInvalidValue;
+// H: B m x m f32 matrices on the current device, matrix b's row i at
+// H + b * batch_stride + i * row_stride (unit column stride, row_stride >= m,
+// m must be 128); out: B contiguous m x m.  Launches on stream s and returns
+// cudaGetLastError(); it does not synchronise.
+extern "C" int sweep_spd_inverse_f32(const float* H, long long batch_stride,
+                                     long long row_stride, float* out, int B,
+                                     int m, cudaStream_t s) {
+  if (m != kM || B < 0 || row_stride < kM || batch_stride < 0)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  sweep_kernel<<<B, kThreads, kSmemBytes, s>>>(H, out);
+  const bool vec = reinterpret_cast<uintptr_t>(H) % 16 == 0 &&
+                   row_stride % 4 == 0 && (B == 1 || batch_stride % 4 == 0);
+  if (vec)
+    sweep_kernel<true><<<B, Tile::kThreads, 0, s>>>(H, batch_stride,
+                                                    row_stride, out);
+  else
+    sweep_kernel<false><<<B, Tile::kThreads, 0, s>>>(H, batch_stride,
+                                                     row_stride, out);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread and local-memory bytes per thread, the larger over
+// the aligned and the unaligned build; local bytes other than 0 mean the
+// register tile spilled.
+extern "C" int sweep_spd_inverse_attributes(int* num_regs, int* local_bytes) {
+  *num_regs = *local_bytes = 0;
+  const void* fns[] = {(const void*)sweep_kernel<true>,
+                       (const void*)sweep_kernel<false>};
+  for (const void* fn : fns) {
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(&fa, fn);
+    if (err != cudaSuccess) return (int)err;
+    if (fa.numRegs > *num_regs) *num_regs = fa.numRegs;
+    if ((int)fa.localSizeBytes > *local_bytes)
+      *local_bytes = (int)fa.localSizeBytes;
+  }
+  return (int)cudaSuccess;
 }

@@ -100,9 +100,15 @@ def load_library() -> ctypes.CDLL:
         _compile(path)
     lib = ctypes.CDLL(str(path))
     fn = lib.sweep_spd_inverse_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    for name in ("sweep_spd_inverse_attributes",
+                 "block_spd_inverse_attributes"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
     fn = lib.gemv_early_exit_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p]
@@ -112,3 +118,15 @@ def load_library() -> ctypes.CDLL:
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes(kernel: str) -> dict:
+    """``{"regs": registers per thread, "local_bytes": local-memory bytes
+    per thread}`` of the compiled ``kernel`` ("sweep_spd_inverse" or
+    "block_spd_inverse"); local bytes other than 0 mean registers spilled."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = getattr(load_library(), f"{kernel}_attributes")(
+        ctypes.byref(regs), ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"{kernel}_attributes: CUDA error {rc}")
+    return {"regs": regs.value, "local_bytes": local.value}

@@ -4,20 +4,25 @@
 (``csrc/sweep_spd_inverse.cu``) for a CUDA tensor and runs the plain
 PyTorch version, ``sweep_spd_inverse_ref``, for a CPU tensor.  Both
 compute the symmetric SWEEP recurrence of the Pallas leaf
-(lqp_py_tpu/ops/pallas/spd_inverse.py) in its textbook form: sweeping
-pivot k of a symmetric A with d = A[k,k] maps
+(lqp_py_tpu/ops/pallas/spd_inverse.py): sweeping pivot k of a symmetric A
+with d = A[k,k] maps
 
     A[k,k] -> -1/d,   A[i,k], A[k,j] -> A[i,k]/d, A[k,j]/d,
     A[i,j] -> A[i,j] - A[i,k] A[k,j] / d          (i, j != k),
 
 and sweeping every pivot of an SPD matrix gives -A^-1, negated on the
-way out.  The Pallas leaf's batch padding (a Mosaic compile-cache
-workaround) is not needed: the kernel takes any B.
+way out.  The plain version takes one pivot per step in this textbook
+form; the kernel takes pivots in pairs, one rank-2 update each, in the
+Pallas leaf's ``u = row - e_k`` form (``csrc/sweep_tile.cuh``).  The
+Pallas leaf's batch padding (a Mosaic compile-cache workaround) is not
+needed: the kernel takes any B.
 """
 
 from __future__ import annotations
 
 import torch
+
+from lqp_py_tpu_torch.ops.kernels import _build
 
 LEAF = 128
 
@@ -42,9 +47,11 @@ def sweep_spd_inverse_ref(H: torch.Tensor) -> torch.Tensor:
 def sweep_spd_inverse(H: torch.Tensor) -> torch.Tensor:
     """H^-1 for a (B, 128, 128) stack of SPD matrices.
 
-    A CPU tensor takes the plain version.  A CUDA tensor must be
-    contiguous float32 of shape (B, 128, 128) and always goes to the
-    kernel; anything else raises."""
+    A CPU tensor takes the plain version.  A CUDA tensor must be float32 of
+    shape (B, 128, 128) with unit column stride and a row stride of at
+    least 128 (a leading-block view of a larger stack is read in place);
+    it always goes to the kernel, and anything else raises.  The result is
+    contiguous."""
     global LAUNCHES
     if H.device.type == "cpu":
         return sweep_spd_inverse_ref(H)
@@ -55,17 +62,24 @@ def sweep_spd_inverse(H: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"sweep_spd_inverse kernel takes float32 (B, {LEAF}, {LEAF}), "
             f"got {H.dtype} {tuple(H.shape)}")
-    if not H.is_contiguous():
-        raise ValueError("sweep_spd_inverse kernel needs a contiguous input")
-    from lqp_py_tpu_torch.ops.kernels._build import load_library
-    lib = load_library()
-    out = torch.empty_like(H)
-    with torch.cuda.device(H.device):
-        stream = torch.cuda.current_stream(H.device).cuda_stream
-        rc = lib.sweep_spd_inverse_f32(H.data_ptr(), out.data_ptr(),
-                                       H.shape[0], LEAF, stream)
+    if H.stride(2) != 1 or H.stride(1) < LEAF:
+        raise ValueError(
+            f"sweep_spd_inverse kernel reads rows of unit stride at least "
+            f"{LEAF} apart, got strides {H.stride()}")
+    out = torch.empty((H.shape[0], LEAF, LEAF), dtype=H.dtype,
+                      device=H.device)
+    dev = H.device.index
+    args = (H.data_ptr(), H.stride(0), H.stride(1), out.data_ptr(),
+            H.shape[0], LEAF, torch.cuda.current_stream(dev).cuda_stream)
+    lib = _build.load_library()               # loaded once, then cached
+    if dev == torch.cuda.current_device():
+        rc = lib.sweep_spd_inverse_f32(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.sweep_spd_inverse_f32(*args)
     if rc != 0:
         raise RuntimeError(f"sweep_spd_inverse kernel launch failed: "
                            f"CUDA error {rc}")
     LAUNCHES += 1
     return out
+

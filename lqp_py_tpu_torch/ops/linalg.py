@@ -73,7 +73,10 @@ def spd_inverse(H):
 
 
 def _sweep_leaf(H):
-    return sweep_spd_inverse(H.contiguous())
+    # The recursion's leading-block views go to the leaf as they are (the
+    # kernel reads through their row stride); only an operand without unit
+    # column stride, such as a transpose from a caller, is copied.
+    return sweep_spd_inverse(H if H.stride(-1) == 1 else H.contiguous())
 
 
 def _gj_inverse_small(H):

@@ -64,6 +64,8 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         run=lambda *a, **k: types.SimpleNamespace(stdout="rehearsal, 0 W")))
     monkeypatch.setattr(_build, "load_library", lambda: None)
     monkeypatch.setattr(_build, "library_path", lambda: Path("stub.so"))
+    monkeypatch.setattr(_build, "kernel_attributes",
+                        lambda kernel: {"regs": 1, "local_bytes": 0})
     for mod in (sk, gk, bk):
         monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)
     leaf = _counting(sk, sk.sweep_spd_inverse_ref)
@@ -94,6 +96,8 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         assert keys <= set(k), k["name"]
         assert k["launches"] > 0 and k["bound_by"] in ("bytes", "operations")
         assert (REPO / k["source"]).exists()
+    assert {"ms_paced", "regs", "local_bytes"} <= set(kernels[0])
+    assert "ms_in_turns" in kernels[1]
     phases = {line.split()[1] for line in lines if line.startswith("phase")}
     assert phases == {str(i) for i in range(1, 12)}
 

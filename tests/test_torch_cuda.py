@@ -14,6 +14,7 @@ import torch
 
 from lqp_py_tpu_torch import BoxQPConfig, boxqp, solve_box_qp
 from lqp_py_tpu_torch.models import box_qp_grad as grads
+from lqp_py_tpu_torch.ops.kernels import _build
 from lqp_py_tpu_torch.ops.kernels import admm_step as gk
 from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
 from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
@@ -29,15 +30,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _leaf_stack(B, device, seed=0):
+def _leaf_stack(B, device, seed=0, n=128):
     g = torch.Generator(device=device).manual_seed(seed)
-    a = torch.randn((B, 256, 128), generator=g, device=device,
+    a = torch.randn((B, 2 * n, n), generator=g, device=device,
                     dtype=torch.float64)
-    return ((a.mT @ a) / 256 + torch.eye(128, dtype=torch.float64,
-                                         device=device)).float()
+    return ((a.mT @ a) / (2 * n) + torch.eye(n, dtype=torch.float64,
+                                             device=device)).float()
 
 
-@pytest.mark.parametrize("B", [1, 7, 128])
+@pytest.mark.parametrize("B", [1, 7, 128, 300])
 def test_sweep_kernel_matches_plain_version(cuda, B):
     H = _leaf_stack(B, cuda)
     before = sk.LAUNCHES
@@ -54,12 +55,49 @@ def test_sweep_kernel_matches_plain_version(cuda, B):
     lambda d: _leaf_stack(2, d).double(),
     lambda d: _leaf_stack(2, d).mT,
     lambda d: _leaf_stack(2, d)[:, :64, :64],
-], ids=["float64", "non-contiguous", "wrong-size"])
+    lambda d: _leaf_stack(2, d).as_strided((2, 128, 128), (128 * 128, 64, 1)),
+], ids=["float64", "transposed", "wrong-size", "overlapping-rows"])
 def test_sweep_kernel_rejects_what_it_does_not_take(cuda, make):
     before = sk.LAUNCHES
     with pytest.raises(ValueError):
         sk.sweep_spd_inverse(make(cuda))
     assert sk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "unaligned"])
+def test_sweep_kernel_reads_a_leading_block_view_in_place(cuda, off):
+    """A [:, off:off+128, off:off+128] view of a (B, 256, 256) stack, as
+    the recursion passes it (off=0: float4 loads; off=1: the scalar path),
+    gives bitwise what the kernel gives on its contiguous copy."""
+    view = _leaf_stack(5, cuda, n=256)[:, off:off + 128, off:off + 128]
+    assert not view.is_contiguous()
+    before = sk.LAUNCHES
+    out = sk.sweep_spd_inverse(view)
+    assert sk.LAUNCHES == before + 1
+    assert out.is_contiguous()
+    assert torch.equal(out, sk.sweep_spd_inverse(view.contiguous()))
+
+
+def test_sweep_kernel_ill_conditioned_no_worse_than_plain(cuda):
+    """cond ~1e4: the kernel's error against the float64 inverse is at
+    most twice the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, _ = torch.linalg.qr(torch.randn((8, 128, 128), generator=g,
+                                       device=cuda, dtype=torch.float64))
+    lam = torch.logspace(-4, 0, 128, dtype=torch.float64, device=cuda)
+    H64 = (q * lam) @ q.mT
+    H64 = 0.5 * (H64 + H64.mT)
+    H = H64.float()
+    inv = torch.linalg.inv(H64)
+    err_k = (sk.sweep_spd_inverse(H).double() - inv).abs().max()
+    err_p = (sk.sweep_spd_inverse_ref(H).double() - inv).abs().max()
+    assert err_k <= 2.0 * err_p, (err_k.item(), err_p.item())
+
+
+def test_sweep_kernel_keeps_its_tile_in_registers(cuda):
+    attrs = _build.kernel_attributes("sweep_spd_inverse")
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["regs"] <= 255, attrs
 
 
 def test_solve_on_cuda_matches_cpu(cuda):

@@ -71,6 +71,33 @@ def test_schur_inverse_matches_jax_recursion():
     np.testing.assert_allclose(ours, theirs, rtol=5e-4, atol=5e-5)
 
 
+def test_schur_inverse_on_a_strided_view_matches_jax_recursion():
+    """The recursion on a leading-block view of a larger stack (its
+    leaves get views, read in place by the card's kernel) equals the
+    recursion on the contiguous input, and the JAX recursion."""
+    n = 256
+    H = _spd(12, 2, n, np.float32)
+    big = np.zeros((2, n + 128, n + 128), np.float32)
+    big[:, :n, :n] = H
+    view = torch.from_numpy(big)[:, :n, :n]
+    assert not view.is_contiguous()
+
+    ours = tlin._schur_inverse(view)
+    assert torch.equal(ours, tlin._schur_inverse(torch.from_numpy(H)))
+
+    import functools
+    ee = functools.partial(jnp.einsum, precision="highest")
+    orig = jsw.sweep_spd_inverse
+    jsw.sweep_spd_inverse = lambda X, **kw: orig(X, interpret=True)
+    try:
+        theirs = np.asarray(jlin._schur_inverse(jnp.asarray(H), ee))
+    finally:
+        jsw.sweep_spd_inverse = orig
+    np.testing.assert_allclose(ours.numpy(), theirs, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(ours.numpy(), np.linalg.inv(
+        H.astype(np.float64)), rtol=5e-4, atol=5e-5)
+
+
 @pytest.mark.parametrize("n,dtype,equilibrate,rtol", [
     (40, torch.float32, True, 2e-4),     # batch-major Gauss-Jordan
     (200, torch.float32, True, 5e-4),    # padded recursion + sweep leaves
