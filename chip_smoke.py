@@ -14,13 +14,15 @@ starts (phases 1-6).  Phase 3 also holds the leaf on a leading-block view
 registers, and times it on the device alone and at the host's pace.
 Phase 7 times the early-exit GEMV against its plain version at 0/50/90% of
 the batch converged, on the device alone and at the host's pace, and in
-turns with ``P @ r``; phase 8 solves the straggler serving batch of
+turns with ``P @ r``, and sets the 90%/0% time ratio beside the active
+share; phase 8 solves the straggler serving batch of
 experiments/experiment_straggler.py (8 hard problems among 120 ridged easy
 ones, B=128, n=1000) lock-step and with the early-exit step, serves it
 prepared, and reports the share of the batch the early-exit GEMV found
 frozen.  Phase 9 checks the whole-matrix block-sweep inverse at
-(128, 1024, 1024) against its plain version and times it beside the
-solver's recursion and a Cholesky inverse; phase 10 runs bench.py's
+(128, 1024, 1024) against its plain version and a float64 inverse, and
+times it beside the solver's recursion (also in turns) and a Cholesky
+inverse, with the bytes its design moves per call; phase 10 runs bench.py's
 forward+backward (the differentiable layer, gradients with respect to Q
 and p of ``sum(w * x)``) at B=128, n=1000 and holds the float32 backward
 against a float64 one; phase 11 takes ten steps of the Experiment-2
@@ -299,6 +301,9 @@ def main():
     # 7. Early-exit GEMV vs plain at the shape the solver gives it, with a
     # fixed share of the batch converged.  Turns: plain, kernel, kernel,
     # plain (after one warm-up each).
+    attrs7 = _build.kernel_attributes("gemv_early_exit")
+    _check(attrs7["local_bytes"] == 0, f"the GEMV kernel spills to local "
+           f"memory: {attrs7}")
     g7 = torch.Generator(device=dev).manual_seed(7)
     P7 = torch.randn((B, N_PAD, N_PAD), generator=g7, device=dev)
     r7 = torch.randn((B, N_PAD), generator=g7, device=dev)
@@ -366,10 +371,13 @@ def main():
     bytes0 = 4 * B * N_PAD * (N_PAD + 3)
     gbps0 = bytes0 / (gemv[0.0]["ms"] * 1e-3) / 1e9
     ratio90 = gemv[0.9]["ms"] / gemv[0.0]["ms"]
+    active90 = B - round(0.9 * B)
     gemv_bound = _bound(2 * B * N_PAD ** 2, bytes0)
     print(f"phase 7 kernel at 0% converged: {gbps0:.1f} GB/s "
-          f"({bytes0 / 1e6:.1f} MB); 90%/0% device time ratio {ratio90:.3f} "
-          f"(< 0.5), host-paced "
+          f"({bytes0 / 1e6:.1f} MB); {attrs7['regs']} registers, "
+          f"{attrs7['local_bytes']} local bytes; 90%/0% device time ratio "
+          f"{ratio90:.3f} (< 0.5) against the active share {active90}/{B} = "
+          f"{active90 / B:.3f}, host-paced "
           f"{gemv[0.9]['paced_ms'] / gemv[0.0]['paced_ms']:.3f}; bound "
           f"{gemv_bound[0]:.4f} ms by {gemv_bound[1]}; in turns with P @ r "
           f"(one batched matmul), kernel/call ms ["
@@ -516,11 +524,15 @@ def main():
         eye64 = torch.eye(N_PAD, dtype=torch.float64, device=dev)
         res9_k = (H64 @ Hk9.double() - eye64).abs().max().item()
         res9_r = (H64 @ Hr9.double() - eye64).abs().max().item()
-        del H64, eye64, Hk9, Hr9
+        sym9 = torch.equal(Hk9, Hk9.mT)
         _check(rel9 <= 1e-4, f"block inverse kernel vs plain relative "
                f"difference {rel9:.3e}")
         _check(res9_k <= 1e-4 and res9_r <= 1e-4, f"block inverse residuals "
                f"kernel {res9_k:.3e}, plain {res9_r:.3e}")
+        inv9 = torch.linalg.inv(H64)
+        err9_k = (Hk9.double() - inv9).abs().max().item()
+        err9_r = (Hr9.double() - inv9).abs().max().item()
+        del inv9
         fns9 = {"kernel": lambda: bk.block_spd_inverse(H9),
                 "plain": lambda: bk.block_spd_inverse_ref(H9),
                 "recursion": lambda: lin.spd_inverse_fast(
@@ -534,7 +546,29 @@ def main():
         for order in (list(fns9), list(fns9)[::-1]):
             for k in order:
                 t9[k].append(_event_ms(fns9[k], reps9[k]))
+        # Kernel and recursion in turns, so that one run settles which is
+        # faster.
+        vs_rec = [(_event_ms(fns9["kernel"], 3),
+                   _event_ms(fns9["recursion"], 3)) for _ in range(3)]
+    del H64, eye64, Hk9, Hr9
+    _check(sym9, "the block inverse's output is not symmetric")
     ms9 = {k: sum(v) / len(v) for k, v in t9.items()}
+    # Device-memory traffic the kernel's design issues per call, L2 hits
+    # included, in 128 x 128 f32 tiles per matrix: per step the pivot tile
+    # (read, write), the transposed panel rows below it (read, write), C read
+    # and W written (step 3), W[I] read and per upper tile C[J] read and M
+    # read and written (step 4), W read and V written (step 5); around the
+    # steps the upper triangle copied in, mirrored and negated.
+    nb9 = N_PAD // LEAF
+    tiles9 = 0
+    for kb in range(nb9):
+        m9 = nb9 - 1
+        tiles9 += 2 + 2 * (nb9 - 1 - kb) + 2 * m9 + (m9 + 3 * m9 * (m9 + 1)
+                                                        // 2) + 2 * m9
+    upper9 = nb9 * (nb9 + 1) // 2
+    tiles9 += 2 * upper9 + 2 * (upper9 - nb9) + 3 * nb9 + 2 * upper9
+    bytes9 = B * tiles9 * 4 * LEAF * LEAF
+    bytes9_ms = bytes9 / HBM_BYTES_S * 1e3
     attrs9 = _build.kernel_attributes("block_spd_inverse")
     # n^3 flops per SPD inverse, as for the leaf (the unsymmetric sweep
     # does 2n^3: that is the design's cost, not the function's).
@@ -544,12 +578,19 @@ def main():
     print(f"phase 9 block inverse ({B},{N_PAD},{N_PAD}) f32: "
           f"{launches9} launch; max|kernel-plain| {max_abs9:.3e} (rel "
           f"{rel9:.3e} <= 1e-4); |H Hinv - I|max kernel {res9_k:.3e}, plain "
-          f"{res9_r:.3e} (<= 1e-4); {attrs9['regs']} registers, "
+          f"{res9_r:.3e} (<= 1e-4); |Hinv - inv_f64|max kernel {err9_k:.3e}, "
+          f"plain {err9_r:.3e}; symmetric; {attrs9['regs']} registers, "
           f"{attrs9['local_bytes']} local bytes; ms " + ", ".join(
               f"{k} {ms9[k]:.4f} ({', '.join(f'{t:.4f}' for t in t9[k])})"
               for k in fns9) + f"; bound {block_bound[0]:.4f} ms by "
           f"{block_bound[1]} (n^3 B flops at {F32_FLOPS / 1e12:g} TFLOP/s; "
-          f"{block_bound_3xtf32:.4f} ms at the 3xTF32 rate)")
+          f"{block_bound_3xtf32:.4f} ms at the 3xTF32 rate); the design "
+          f"moves {bytes9 / 1e9:.3f} GB per call ({bytes9_ms:.4f} ms at "
+          f"{HBM_BYTES_S / 1e12:g} TB/s, L2 hits included); in turns with "
+          f"the recursion, kernel/recursion ms ["
+          + ", ".join(f"{k:.4f}/{r:.4f}" for k, r in vs_rec) + "] (the "
+          f"kernel is {'faster' if all(k < r for k, r in vs_rec) else 'not faster'}"
+          f" in every turn)")
 
     # 10. bench.py's forward+backward: boxqp at B=128, n=1000, gradients
     # with respect to Q and p of sum(w * x), w from a numpy seed.
@@ -712,15 +753,18 @@ def main():
         "paced_ms": {f"{f:.0%}": gemv[f]["paced_ms"] for f in gemv},
         "paced_plain_ms": {f"{f:.0%}": gemv[f]["paced_plain_ms"]
                            for f in gemv},
-        "gb_per_s_0": gbps0, "frozen_share_straggler": share8}, {
+        "gb_per_s_0": gbps0, "frozen_share_straggler": share8,
+        "ratio_90_0": ratio90,
+        "turns_vs_call": vs_call, "regs": attrs7["regs"],
+        "local_bytes": attrs7["local_bytes"]}, {
         "name": "block_spd_inverse", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/block_spd_inverse.cu",
         "replaces": "lqp_py_tpu/ops/pallas/block_inverse.py:99",
         "launches": launches9, "max_abs_err": max_abs9,
         "ms": ms9["kernel"], "plain_ms": ms9["plain"],
-        "recursion_ms": ms9["recursion"],
+        "recursion_ms": ms9["recursion"], "turns_vs_recursion": vs_rec,
+        "err_vs_f64": err9_k, "plain_err_vs_f64": err9_r,
         "bound_ms": block_bound[0], "bound_by": block_bound[1],
-        "bound_ms_3xtf32": block_bound_3xtf32,
         "library_ms": ms9["cholesky_inverse"], "regs": attrs9["regs"],
         "local_bytes": attrs9["local_bytes"]}]}))
     print(json.dumps({"ok": True, "device": {

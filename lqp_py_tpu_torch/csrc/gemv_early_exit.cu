@@ -18,18 +18,27 @@
 // in turn, reads each row with coalesced 16-byte loads (a scalar loop where
 // n % 4 != 0 or P is not 16-byte aligned), accumulates in f32, reduces with
 // __shfl_xor_sync, and lane 0 stores.  Any n is taken; the 256-alignment of
-// the Pallas kernel was a TPU tiling constraint.
+// the Pallas kernel was a TPU tiling constraint.  P's loads are marked
+// streaming (evict-first): P is read once, r, x_prev and out stay in L2.
+// Blocks of 32 rows (four per warp) read P faster than blocks of 64 on the
+// H100; 16 gain little more and cost more when the whole batch is frozen.
 //
 // Bound: device-memory bytes, 4 n^2 per *active* element: 537 MB at B = 128,
 // n = 1024 with none converged, about 160 us at 3.35 TB/s.  A converged
 // element costs 4 n bytes of x_prev read and out written.
+//
+// A persistent grid balanced over the active rows, streaming P through a
+// ring of bulk-TMA stages, was measured against this design on the H100 and
+// lost on the solver's own traffic (the straggler batch's flags, replayed
+// by lqp_py_tpu_torch/kernel_variants.py; PERF.md): most of its calls have
+// nothing frozen, where it streamed P more slowly than these short blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRows = 64;                    // rows of P per block
+constexpr int kRows = 32;                    // rows of P per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kDefaultSmem = 48 * 1024;   // above it: opt-in attribute
@@ -69,12 +78,12 @@ gemv_early_exit_kernel(const float* __restrict__ P, const float* __restrict__ r,
       const int n4 = n / 4;
 #pragma unroll 8
       for (int k = lane; k < n4; k += 32) {
-        const float4 a = __ldg(row4 + k);
+        const float4 a = __ldcs(row4 + k);
         const float4 v = smem4[k];
         acc += a.x * v.x + a.y * v.y + a.z * v.z + a.w * v.w;
       }
     } else {
-      for (int k = lane; k < n; k += 32) acc += __ldg(row + k) * rs[k];
+      for (int k = lane; k < n; k += 32) acc += __ldcs(row + k) * rs[k];
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -115,4 +124,16 @@ extern "C" int gemv_early_exit_f32(const float* P, const float* r,
   const bool vec = (n % 4 == 0) && ((uintptr_t)P % 16 == 0);
   return vec ? launch<true>(P, r, x_prev, converged, out, B, n, smem, s)
              : launch<false>(P, r, x_prev, converged, out, B, n, smem, s);
+}
+
+// Registers per thread and local-memory bytes per thread of the vector path
+// (the solver's: it pads n to 256).
+extern "C" int gemv_early_exit_attributes(int* num_regs, int* local_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&fa, gemv_early_exit_kernel<true>);
+  if (err != cudaSuccess) return (int)err;
+  *num_regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return (int)cudaSuccess;
 }

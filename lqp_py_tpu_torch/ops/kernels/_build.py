@@ -105,6 +105,7 @@ def load_library() -> ctypes.CDLL:
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     for name in ("sweep_spd_inverse_attributes",
+                 "gemv_early_exit_attributes",
                  "block_spd_inverse_attributes"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
@@ -122,8 +123,9 @@ def load_library() -> ctypes.CDLL:
 
 def kernel_attributes(kernel: str) -> dict:
     """``{"regs": registers per thread, "local_bytes": local-memory bytes
-    per thread}`` of the compiled ``kernel`` ("sweep_spd_inverse" or
-    "block_spd_inverse"); local bytes other than 0 mean registers spilled."""
+    per thread}`` of the compiled ``kernel`` ("sweep_spd_inverse",
+    "gemv_early_exit" or "block_spd_inverse"); local bytes other than 0 mean
+    registers spilled."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     rc = getattr(load_library(), f"{kernel}_attributes")(
         ctypes.byref(regs), ctypes.byref(local))

@@ -73,14 +73,15 @@ def block_spd_inverse(H: torch.Tensor) -> torch.Tensor:
     lib = load_library()
     B, n, _ = H.shape
     out = torch.empty_like(H)
-    # Per-matrix scratch: the column panel and V, both stored transposed
-    # (128, n) so that every panel read in the update is contiguous.
-    ct = torch.empty((B, BLK, n), dtype=H.dtype, device=H.device)
-    vt = torch.empty_like(ct)
+    # Per-matrix scratch, (n, 128) rows with the pivot index contiguous
+    # (the K-major layout the tensor-core products read): the column
+    # panel's rows below the pivot block, and W = -V.
+    ct = torch.empty((B, n, BLK), dtype=H.dtype, device=H.device)
+    w = torch.empty_like(ct)
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream(H.device).cuda_stream
         rc = lib.block_spd_inverse_f32(H.data_ptr(), out.data_ptr(),
-                                       ct.data_ptr(), vt.data_ptr(), B, n,
+                                       ct.data_ptr(), w.data_ptr(), B, n,
                                        stream)
     if rc != 0:
         raise RuntimeError(f"block_spd_inverse kernel launch failed: "

@@ -119,26 +119,53 @@ def _gemv_inputs(B, n, device, seed=0):
     return P, r, x_prev
 
 
+def _check_gemv(P, r, x_prev, conv):
+    before = gk.LAUNCHES
+    out = gk.gemv_early_exit(P, r, x_prev, conv)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before + 1
+    ref = gk.gemv_early_exit_ref(P, r, x_prev, conv)
+    assert torch.equal(out[conv], x_prev[conv])
+    act = ~conv
+    if bool(act.any()):
+        err = (out[act] - ref[act]).abs().max()
+        assert err <= 1e-5 * ref[act].abs().max(), err.item()
+
+
 @pytest.mark.parametrize("n", [384, 385, 1000, 1024])
-@pytest.mark.parametrize("B", [1, 7, 128])
+@pytest.mark.parametrize("B", [1, 7, 128, 300])
 def test_gemv_kernel_matches_plain_version(cuda, B, n):
-    # n = 385 takes the scalar path (rows not 16-byte aligned).
+    # n = 385 takes the scalar path (rows not 16-byte aligned).  B = 300 is
+    # more than the SM count.  Shares converged: none, all but one active,
+    # one active, half, all.
     P, r, x_prev = _gemv_inputs(B, n, cuda)
     g = torch.Generator(device=cuda).manual_seed(1)
     order = torch.randperm(B, generator=g, device=cuda)
-    for frac in (0.0, 0.5, 1.0):
+    for n_conv in sorted({0, 1, B - 1, B // 2, B}):
         conv = torch.zeros(B, dtype=torch.bool, device=cuda)
-        conv[order[:round(frac * B)]] = True
-        before = gk.LAUNCHES
-        out = gk.gemv_early_exit(P, r, x_prev, conv)
-        torch.cuda.synchronize()
-        assert gk.LAUNCHES == before + 1
-        ref = gk.gemv_early_exit_ref(P, r, x_prev, conv)
-        assert torch.equal(out[conv], x_prev[conv])
-        act = ~conv
-        if bool(act.any()):
-            err = (out[act] - ref[act]).abs().max()
-            assert err <= 1e-5 * ref[act].abs().max(), (frac, err.item())
+        conv[order[:n_conv]] = True
+        _check_gemv(P, r, x_prev, conv)
+
+
+@pytest.mark.parametrize("B", [7, 300])
+def test_gemv_kernel_reads_a_misaligned_view(cuda, B):
+    """P as a view at a 4-byte offset into its storage: not 16-byte
+    aligned, so the kernel takes the scalar path."""
+    n = 384
+    P, r, x_prev = _gemv_inputs(B, n, cuda)
+    flat = torch.empty(B * n * n + 1, device=cuda)
+    Pv = flat[1:].view(B, n, n)
+    Pv.copy_(P)
+    assert Pv.is_contiguous() and Pv.data_ptr() % 16 != 0
+    conv = torch.zeros(B, dtype=torch.bool, device=cuda)
+    conv[::3] = True
+    _check_gemv(Pv, r, x_prev, conv)
+
+
+def test_gemv_kernel_keeps_no_local_memory(cuda):
+    attrs = _build.kernel_attributes("gemv_early_exit")
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["regs"] <= 255, attrs
 
 
 @pytest.mark.parametrize("make", [
@@ -179,17 +206,25 @@ def _equilibrated_spd(B, n, device, seed=0):
     return (H * d[:, :, None] * d[:, None, :]).float()
 
 
-@pytest.mark.parametrize("B,n", [(4, 384), (2, 1024), (3, 128)])
+@pytest.mark.parametrize("n", [128, 384, 1024])
+@pytest.mark.parametrize("B", [1, 7, 130])
 def test_block_inverse_kernel_matches_plain_version(cuda, B, n):
     H = _equilibrated_spd(B, n, cuda)
     before = bk.LAUNCHES
     out = bk.block_spd_inverse(H)
     torch.cuda.synchronize()
     assert bk.LAUNCHES == before + 1
+    assert torch.equal(out, out.mT)              # mirrored, not recomputed
     ref = bk.block_spd_inverse_ref(H)
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
     eye = torch.eye(n, dtype=torch.float64, device=cuda)
     assert (H.double() @ out.double() - eye).abs().max() <= 1e-4
+
+
+def test_block_inverse_kernel_keeps_no_local_memory(cuda):
+    attrs = _build.kernel_attributes("block_spd_inverse")
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["regs"] <= 255, attrs
 
 
 @pytest.mark.parametrize("make", [
