@@ -26,8 +26,17 @@ inverse, with the bytes its design moves per call; phase 10 runs bench.py's
 forward+backward (the differentiable layer, gradients with respect to Q
 and p of ``sum(w * x)``) at B=128, n=1000 and holds the float32 backward
 against a float64 one; phase 11 takes ten steps of the Experiment-2
-trainer (n_x=500, minibatch 32 of 128, SGD).  Every phase raises on
-failure.  The line before the last lists each kernel with its launches on
+trainer (n_x=500, minibatch 32 of 128, SGD).  Phase 7 also runs the GEMV
+on a batch of 65536 (above the grid's y limit, launched in chunks).
+Phases 12-15 drive the rest of the box-QP solver at B=128, n=1000: phase
+12 Experiment 1's unrolled forward+backward (60 iterations, adaptive rho
+off) against phase 10's fixed-point answer, with its peak memory; phase 13
+the polish and the Cholesky KKT mode on phase 5's requests against the
+float64 reference (the Cholesky mode launches no leaf); phase 14 Anderson
+acceleration (window 10) on the straggler batch against its plain solve,
+with the time of the m x m Gram inverse; phase 15 the equality-constrained
+and unconstrained solvers' forward+backward against float64 runs.  Every
+phase raises on failure.  The line before the last lists each kernel with its launches on
 its paths, its error against the plain version, its time beside the plain
 version's, its bound and a library yardstick; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
@@ -36,6 +45,7 @@ printing any result.
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,6 +57,12 @@ N, B, TOL = 1000, 128, 1e-5
 LEAF = 128
 N_HARD = 8          # stragglers in the phase-8 batch
 N_PAD = 1024        # n=1000 padded to the 128 and to the 256 alignment
+B_BIG = 65536       # the GEMV's batch above the grid's y limit (phase 7)
+AA_WINDOW = 10      # experiments/experiment_aa.py's first window (phase 14)
+# Phase 12's gate on max|x_unrolled - x_fixed_point|: five times the
+# 4.542e-05 that one "NVIDIA H100 80GB HBM3, 700.00 W" showed
+# (experiments/experiment_1.py's DEV_GATE is 2e-2).
+UNROLL_X_GATE = 2.3e-4
 # Experiment 2 at experiments/experiment_2.py's defaults.
 N_X2, N_FEAT2, N_BATCH2, MINI2, LR2, STEPS2 = 500, 5, 128, 32, 5e-4, 10
 # The H100 SXM's published peaks (700 W): float32 outside the tensor cores
@@ -64,17 +80,17 @@ def _check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def _event_ms(fn, reps, queued=False):
+def _event_ms(fn, reps, queued=False, host_ms=0.1):
     """Mean device time of ``fn()`` over ``reps`` back-to-back calls.
 
     With ``queued`` the stream is first held by a spin kernel long enough
-    for the host to enqueue every call, so the time is the device's alone;
-    without it a call whose host side outlasts its kernel is timed at the
-    host's pace, as the solver loop sees it."""
+    for the host to enqueue every call (``host_ms`` per call), so the time
+    is the device's alone; without it a call whose host side outlasts its
+    kernels is timed at the host's pace, as the solver loop sees it."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if queued:
-        torch.cuda._sleep(int(reps * 2e5))      # ~0.1 ms per call at ~2 GHz
+        torch.cuda._sleep(int(reps * host_ms * 2e6))    # cycles at ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -103,7 +119,9 @@ def main():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "check needs an NVIDIA GPU")
     from lqp_py_tpu_torch import (BoxQPConfig, boxqp, prepare_box_qp,
-                                  solve_box_qp, solve_box_qp_prepared)
+                                  qp_eqcon, qp_uncon, solve_box_qp,
+                                  solve_box_qp_prepared, solve_qp_eqcon,
+                                  solve_qp_uncon)
     from lqp_py_tpu_torch.models import box_qp_grad as grads
     from lqp_py_tpu_torch.models import layers
     from lqp_py_tpu_torch.models import train
@@ -114,7 +132,11 @@ def main():
     from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
     from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
     from lqp_py_tpu_torch.utils.generators import (create_qp_data,
-                                                   generate_hard_qp)
+                                                   generate_hard_qp,
+                                                   kkt_residuals)
+
+    def kkt_of(data, sol):
+        return kkt_residuals(*data, sol.x, sol.lams, sol.nus)
 
     dev = torch.device(DEVICE, 0)
     torch.cuda.set_device(dev)
@@ -263,6 +285,7 @@ def main():
     print(f"phase 5 float64 reference (Cholesky, tol 1e-9): "
           f"{sol64.iterations} iterations, {ms64:.2f} ms; "
           f"max|x_f32 - x_f64| {dx64:.3e} (<= 1e-3)")
+    x64_5 = sol64.x
     del sol64, d64
 
     # 6. Serving: one preparation, four requests with p drifting by 1% per
@@ -296,7 +319,7 @@ def main():
     _check(launches > 0, "the serving path launched no sweep kernel")
     _check(gk.LAUNCHES == 0, "the lock-step path launched the early-exit "
            "GEMV")
-    del data, data0, direct0, prep, prev, sol
+    del data, prep, prev, sol
 
     # 7. Early-exit GEMV vs plain at the shape the solver gives it, with a
     # fixed share of the batch converged.  Turns: plain, kernel, kernel,
@@ -366,6 +389,31 @@ def main():
                   f"plain {gemv[frac]['paced_plain_ms']:.4f} ms ({h_p1:.4f}, "
                   f"{h_p2:.4f})")
     del P7
+    # A batch above the grid's y limit (65535) runs in chunks: B_BIG
+    # elements of n=8, a third of them converged.
+    Pb = torch.randn((B_BIG, 8, 8), generator=g7, device=dev)
+    rb = torch.randn((B_BIG, 8), generator=g7, device=dev)
+    xb = torch.randn((B_BIG, 8), generator=g7, device=dev)
+    convb = torch.zeros(B_BIG, dtype=torch.bool, device=dev)
+    convb[torch.randperm(B_BIG, generator=g7, device=dev)[:B_BIG // 3]] = True
+    with highest_matmul_precision():
+        gb0 = gk.LAUNCHES
+        outb = gk.gemv_early_exit(Pb, rb, xb, convb)
+        launches_big = gk.LAUNCHES - gb0
+        refb = gk.gemv_early_exit_ref(Pb, rb, xb, convb)
+    torch.cuda.synchronize()
+    _check(launches_big == 1, f"{launches_big} GEMV launches at B={B_BIG}")
+    _check(torch.equal(outb[convb], xb[convb]),
+           f"B={B_BIG}: frozen rows are not x_prev")
+    actb = ~convb
+    errb = (outb[actb] - refb[actb]).abs().max().item()
+    relb = errb / refb[actb].abs().max().item()
+    _check(relb <= 1e-5, f"B={B_BIG}: kernel vs plain relative difference "
+           f"{relb:.3e}")
+    print(f"phase 7 early-exit GEMV at B={B_BIG} (above the grid's 65535), "
+          f"n=8, {int(convb.sum())} converged: max|kernel-plain| {errb:.3e} "
+          f"(rel {relb:.3e} <= 1e-5), frozen rows bitwise")
+    del Pb, rb, xb, outb, refb
     # Bytes the kernel must move with none converged: all of P, r, x_prev
     # (unread then, but counted as the plain version reads it) and out.
     bytes0 = 4 * B * N_PAD * (N_PAD + 3)
@@ -671,7 +719,7 @@ def main():
           f"({kkt_leaves} leaves) vs fixed_point: max|ddp| {dkkt_p:.3e}, "
           f"max|ddQ| {dkkt_Q:.3e}; ms forward/backward/total " + "; ".join(
               f"{f:.2f}/{b_:.2f}/{t:.2f}" for f, b_, t in times10))
-    del data10, Q10, p10, gQ10, gp10, x10, sol10
+    del sol10
 
     # 11. Experiment-2 trainer: LinearQP + boxqp, SGD on minibatches of the
     # numpy-seeded index matrix, default BoxQPConfig at tol 1e-5.
@@ -730,12 +778,270 @@ def main():
           f"[{', '.join(f'{v:.5f}' for v in losses11)}]; ms per step "
           f"[{', '.join(f'{v:.2f}' for v in ms11)}]")
 
+    # 12. Experiment 1's ADMM_Unroll mode (experiments/experiment_1.py):
+    # boxqp(unroll=True, unroll_iters=60, adaptive_rho=False) on phase 10's
+    # Q, p and w, gradients with respect to Q and p, held against phase
+    # 10's fixed-point x and gradients.
+    cfg12 = BoxQPConfig(eps_abs=TOL, eps_rel=TOL, unroll=True,
+                        symmetrize=False, unroll_iters=60,
+                        adaptive_rho=False)
+    solves12 = []
+    solve_fn = lin.kkt_solve_cached
+
+    def counted_solve(*args):
+        solves12.append(1)
+        return solve_fn(*args)
+
+    def unrolled():
+        solves12.clear()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        s0 = sk.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = boxqp(Q10, p10, A10, b10, lb10, ub10, config=cfg12)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s1 = sk.LAUNCHES
+        gQ, gp = torch.autograd.grad((w10 * x).sum(), (Q10, p10))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        return (x.detach(), gQ, gp, len(solves12), s1 - s0,
+                sk.LAUNCHES - s1, peak,
+                ((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+
+    lin.kkt_solve_cached = counted_solve
+    try:
+        sk.LAUNCHES = 0
+        x12, gQ12, gp12, it12, fwd_leaves12, bwd_leaves12, peak12, _ = (
+            unrolled())
+        launches12 = sk.LAUNCHES
+        times12 = [unrolled()[-1] for _ in range(2)]
+    finally:
+        lin.kkt_solve_cached = solve_fn
+    _check(fwd_leaves12 == leaves10 and bwd_leaves12 == 0,
+           f"unrolled: {fwd_leaves12} leaf launches in the forward, "
+           f"{bwd_leaves12} in the backward (want {leaves10} and 0)")
+    _check(all(bool(torch.isfinite(t).all()) for t in (x12, gQ12, gp12)),
+           "unrolled: x or a gradient not finite")
+    dx12 = (x12 - x10).abs().max().item()
+
+    def rel_fro(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    # With symmetrize=False the unrolled dQ differentiates each entry of Q
+    # on its own, while the fixed-point backward returns the gradient on
+    # the symmetric matrices (its symmetric part); the two agree on every
+    # symmetric direction, so their symmetric parts are compared.
+    def sym(M):
+        return 0.5 * (M + M.mT)
+
+    rel_dQ12, rel_dp12 = rel_fro(sym(gQ12), sym(gQ10)), rel_fro(gp12, gp10)
+    raw_dQ12 = rel_fro(gQ12, gQ10)
+    _check(dx12 <= UNROLL_X_GATE, f"unrolled vs fixed-point x: "
+           f"{dx12:.3e} > {UNROLL_X_GATE:g}")
+    _check(rel_dQ12 <= 5e-2 and rel_dp12 <= 5e-2,
+           f"unrolled vs fixed-point gradients: relative Frobenius sym(dQ) "
+           f"{rel_dQ12:.3e}, dp {rel_dp12:.3e} (> 5e-2)")
+    print(f"phase 12 Experiment-1 unrolled forward+backward (B={B}, n={N}, "
+          f"f32, tol {TOL:g}, unroll_iters 60, adaptive rho off): "
+          f"{it12} iterations before done; {fwd_leaves12} leaf launches in "
+          f"the forward, {bwd_leaves12} in the backward; max|x - x_fp| "
+          f"{dx12:.3e} (<= {UNROLL_X_GATE:g}); relative Frobenius vs "
+          f"fixed point sym(dQ) {rel_dQ12:.3e}, dp {rel_dp12:.3e} (<= 5e-2)"
+          f", raw dQ {raw_dQ12:.3e}; "
+          f"peak memory above the inputs {peak12 / 2**30:.3f} GiB; ms "
+          f"forward/backward " + "; ".join(
+              f"{f:.2f}/{b_:.2f}" for f, b_ in times12))
+    del x12, gQ12, gp12, data10, Q10, p10, gQ10, gp10, x10
+
+    # 13. Polish and the Cholesky KKT mode on phase 5's serving requests.
+    cfg_pol = dataclasses.replace(cfg, polish=True)
+    s0 = sk.LAUNCHES
+    plain13, plain13_ms = _wall_ms(lambda: solve_box_qp(*data0, config=cfg))
+    plain_leaves13 = sk.LAUNCHES - s0
+    s0 = sk.LAUNCHES
+    pol13, pol13_ms = _wall_ms(lambda: solve_box_qp(*data0, config=cfg_pol))
+    pol_leaves13 = sk.LAUNCHES - s0
+    _check(plain_leaves13 % leaves10 == 0 and plain_leaves13 > 0
+           and pol_leaves13 == plain_leaves13 + leaves10,
+           f"polish: {pol_leaves13} leaf launches against {plain_leaves13} "
+           f"unpolished (want {leaves10} more)")
+    n_acc13 = int(pol13.polished.sum())
+    res_pol = kkt_of(data0, pol13)
+    res_plain = kkt_of(data0, plain13)
+    # Per element, a polished residual may not exceed the unpolished one
+    # beyond a floor: eps_abs (the polish's own acceptance margin) and, for
+    # the equality, the float32 rounding of A x itself, sqrt(n) eps |A||x|
+    # (both x satisfy A x = b only to that level at n=1000).
+    with highest_matmul_precision():
+        ax_scale = (data0.A.abs() @ pol13.x.abs()[..., None])[..., 0].amax(
+            dim=-1)
+    floors13 = {k: torch.full_like(v, cfg.eps_abs) for k, v in res_pol.items()}
+    floors13["eq"] = torch.clamp(
+        math.sqrt(N) * torch.finfo(torch.float32).eps * ax_scale,
+        min=cfg.eps_abs)
+    worse13 = {k: int((res_pol[k] > torch.maximum(res_plain[k],
+                                                  floors13[k])).sum())
+               for k in res_pol}
+    better13 = {k: int((res_pol[k] <= res_plain[k]).sum()) for k in res_pol}
+    _check(not any(worse13.values()), f"polish: kkt_residuals above the "
+           f"unpolished ones (and their floors) for elements {worse13}: "
+           + ", ".join(f"{k} {res_pol[k].max().item():.3e}/"
+                       f"{res_plain[k].max().item():.3e}" for k in res_pol))
+    dx13 = (pol13.x.double() - x64_5).abs().max().item()
+    _check(dx13 <= 1e-3, f"polish: max|x - x_f64| = {dx13:.3e}")
+    prep13 = prepare_box_qp(data0.Q, data0.A, data0.b, data0.lb, data0.ub,
+                            config=cfg_pol)
+    served13 = solve_box_qp_prepared(prep13, data0.p, config=cfg_pol)
+    dprep13 = (served13.x - pol13.x).abs().max().item()
+    _check(dprep13 <= 1e-6, f"polish: prepared vs direct {dprep13:.3e}")
+    del prep13, served13
+    print(f"phase 13 polish (B={B}, n={N}, f32, tol {TOL:g}): {n_acc13}/{B} "
+          f"accepted; {pol_leaves13} leaf launches ({plain_leaves13} "
+          f"unpolished + {leaves10}); kkt_residuals max polished/unpolished "
+          + ", ".join(f"{k} {res_pol[k].max().item():.3e}/"
+                      f"{res_plain[k].max().item():.3e} (no worse in "
+                      f"{better13[k]}/{B})" for k in res_pol)
+          + f", none above max(unpolished, floor) (eq floor "
+          f"{floors13['eq'].max().item():.3e}); max|x - x_f64| "
+          f"{dx13:.3e} (<= 1e-3), unpolished {(plain13.x.double() - x64_5).abs().max().item():.3e}; "
+          f"prepared vs direct {dprep13:.3e} (<= 1e-6); request ms "
+          f"unpolished {plain13_ms:.2f}, polished {pol13_ms:.2f} (polish "
+          f"share {(pol13_ms - plain13_ms) / pol13_ms:.3f})")
+    cfg_chol = dataclasses.replace(cfg, kkt_solver="cholesky")
+    s0 = sk.LAUNCHES
+    chol13, chol13_ms = _wall_ms(lambda: solve_box_qp(*data0,
+                                                      config=cfg_chol))
+    chol_leaves13 = sk.LAUNCHES - s0
+    _check(chol_leaves13 == 0, f"Cholesky mode launched {chol_leaves13} "
+           f"leaves")
+    n_conv13 = int(chol13.converged.sum())
+    _check(n_conv13 == B and bool(torch.isfinite(chol13.x).all()),
+           f"Cholesky mode: {n_conv13}/{B} converged")
+    dxc13 = (chol13.x.double() - x64_5).abs().max().item()
+    _check(dxc13 <= 1e-3, f"Cholesky mode: max|x - x_f64| = {dxc13:.3e}")
+    print(f"phase 13 kkt_solver='cholesky': {n_conv13}/{B} converged in "
+          f"{chol13.iterations} iterations (inverse mode "
+          f"{plain13.iterations}); 0 leaf launches; max|x - x_f64| "
+          f"{dxc13:.3e} (<= 1e-3); request {chol13_ms:.2f} ms (inverse "
+          f"mode {plain13_ms:.2f})")
+    del pol13, plain13, chol13, data0, direct0, x64_5
+
+    # 14. Anderson acceleration (window 10) on the straggler batch,
+    # lock-step, against phase 8's plain lock-step solve.
+    cfg_aa = dataclasses.replace(cfg_lock, acceleration=AA_WINDOW)
+    plain8 = sols8["lock-step"]
+    plain8_ms = sorted(ms for ms, _ in runs8["lock-step"][1:])[1]
+    runs14 = []
+    for _ in range(2):
+        s0 = sk.LAUNCHES
+        aa14, ms = _wall_ms(lambda: solve_box_qp(*data8, config=cfg_aa))
+        runs14.append((ms, sk.LAUNCHES - s0))
+    aa_leaves14 = runs14[0][1]
+    n_conv14 = int(aa14.converged.sum())
+    _check(n_conv14 == B and not bool(aa14.primal_infeasible.any())
+           and bool(torch.isfinite(aa14.x).all()),
+           f"Anderson: {n_conv14}/{B} converged, "
+           f"{int(aa14.primal_infeasible.sum())} infeasible")
+    _check(aa_leaves14 > 0 and aa_leaves14 % leaves10 == 0,
+           f"Anderson: {aa_leaves14} leaf launches")
+    dx14 = (aa14.x - plain8.x).abs().max().item()
+    _check(dx14 <= 1e-2, f"Anderson vs plain: max|dx| = {dx14:.3e}")
+    res_aa = kkt_of(data8, aa14)
+    res_pl8 = kkt_of(data8, plain8)
+    _check(all(res_aa[k].max() <= 10 * res_pl8[k].max() for k in res_aa),
+           "Anderson: kkt_residuals above 10x the plain solve's: " + ", ".join(
+               f"{k} {res_aa[k].max().item():.3e}/"
+               f"{res_pl8[k].max().item():.3e}" for k in res_aa))
+    Mg = torch.randn((B, AA_WINDOW, 2 * AA_WINDOW), device=dev)
+    with highest_matmul_precision():
+        Mg = Mg @ Mg.mT + torch.eye(AA_WINDOW, device=dev)
+    lin._gj_inverse_small(Mg)
+    gj_ms = _event_ms(lambda: lin._gj_inverse_small(Mg), 20)
+    # Its ~70 small launches, enqueued behind a held stream: device time.
+    gj_dev_ms = _event_ms(lambda: lin._gj_inverse_small(Mg), 20, True,
+                          host_ms=3.0)
+    print(f"phase 14 Anderson window {AA_WINDOW} on the straggler batch "
+          f"(lock-step, B={B}, n={N}, f32, tol {TOL:g}): {n_conv14}/{B} "
+          f"converged, none infeasible, in {aa14.iterations} iterations "
+          f"(plain {plain8.iterations}); {aa_leaves14} leaf launches "
+          f"({aa_leaves14 // leaves10 - 1} refactorizations); max|x - "
+          f"x_plain| {dx14:.3e} (<= 1e-2); kkt_residuals max Anderson/plain "
+          + ", ".join(f"{k} {res_aa[k].max().item():.3e}/"
+                      f"{res_pl8[k].max().item():.3e}" for k in res_aa)
+          + f" (<= 10x); request ms [{', '.join(f'{ms:.2f}' for ms, _ in runs14)}]"
+          f" ({runs14[-1][0] / B:.4f} ms per problem, "
+          f"{runs14[-1][0] / aa14.iterations:.3f} ms per iteration against "
+          f"plain {plain8_ms / plain8.iterations:.3f}); one "
+          f"_gj_inverse_small ({B},{AA_WINDOW},{AA_WINDOW}) {gj_ms:.4f} ms "
+          f"at the host's pace, {gj_dev_ms:.4f} ms on the device")
+    del aa14, data8, sols8, plain8, Mg
+
+    # 15. The equality-constrained and unconstrained solvers on the serving
+    # problems (create_qp_data seed 0), forward+backward with respect to Q
+    # and p of sum(w x), held against the same calls in float64.
+    data15 = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
+    Q15, p15, A15, b15 = data15.Q, data15.p, data15.A, data15.b
+    lines15 = []
+    for name, fn, args in (("qp_eqcon", qp_eqcon, (A15, b15)),
+                           ("qp_uncon", qp_uncon, ())):
+        outs = {}
+        for dt in (torch.float32, torch.float64):
+            Qd = Q15.to(dt).requires_grad_(True)
+            pd = p15.to(dt).requires_grad_(True)
+            s0 = sk.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = fn(Qd, pd, *(a.to(dt) for a in args))
+            gQ, gp = torch.autograd.grad((w10.to(dt) * x).sum(), (Qd, pd))
+            torch.cuda.synchronize()
+            outs[dt] = (x.detach(), gQ, gp, sk.LAUNCHES - s0,
+                        (time.perf_counter() - t0) * 1e3)
+        (x32, gQ32, gp32, lv, ms), (x64, gQ64, gp64, _, ms64) = (
+            outs[torch.float32], outs[torch.float64])
+        _check(lv == 0, f"{name}: {lv} leaf launches")
+        rel = {k: ((a.double() - b_).abs().max() / b_.abs().max()).item()
+               for k, a, b_ in (("x", x32, x64), ("dQ", gQ32, gQ64),
+                                ("dp", gp32, gp64))}
+        _check(all(v <= 1e-3 for v in rel.values()),
+               f"{name} f32 vs f64: relative {rel}")
+        sol = (solve_qp_eqcon(Q15, p15, A15, b15) if args
+               else solve_qp_uncon(Q15, p15))
+        with highest_matmul_precision():
+            Qx = (Q15 @ sol.x[..., None])[..., 0]
+            stat = Qx + p15
+            if args:
+                stat = stat + (A15.mT @ sol.nus[..., None])[..., 0]
+                eq = ((A15 @ sol.x[..., None])[..., 0] - b15).abs().max()
+                eq_rel = (eq / torch.clamp(b15.abs().max(), min=1.0)).item()
+            else:
+                eq_rel = 0.0
+        stat_rel = (stat.abs().max() / torch.maximum(
+            p15.abs().max(), Qx.abs().max())).item()
+        _check(stat_rel <= 1e-3 and eq_rel <= 1e-3,
+               f"{name}: relative stationarity {stat_rel:.3e}, equality "
+               f"{eq_rel:.3e}")
+        lines15.append(
+            f"{name}: 0 leaf launches; f32 vs f64 relative max|dx| "
+            f"{rel['x']:.3e}, |ddQ| {rel['dQ']:.3e}, |ddp| {rel['dp']:.3e} "
+            f"(<= 1e-3); |Qx + p" + (" + A^T nu" if args else "")
+            + f"|max / scale {stat_rel:.3e}" + (f", |Ax - b|max / scale "
+                                               f"{eq_rel:.3e}" if args else "")
+            + f" (<= 1e-3); forward+backward {ms:.2f} ms (f64 {ms64:.2f})")
+    print(f"phase 15 equality-constrained and unconstrained solvers (B={B}, "
+          f"n={N}): " + "; ".join(lines15))
+    del data15, Q15, p15, A15, b15
+
     print(json.dumps({"kernels": [{
         "name": "sweep_spd_inverse", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/sweep_spd_inverse.cu",
         "replaces": "lqp_py_tpu/ops/pallas/spd_inverse.py:53",
         "launches": launches, "launches_straggler": launches8_sweep,
         "launches_fwd_bwd": launches10, "launches_train": launches11,
+        "launches_unrolled": launches12, "launches_polish": pol_leaves13,
+        "launches_cholesky": chol_leaves13, "launches_anderson": aa_leaves14,
         "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
         "plain_ms": plain_ms, "bound_ms": leaf_bound[0],
         "bound_by": leaf_bound[1], "library_ms": leaf_lib_ms,
@@ -745,6 +1051,7 @@ def main():
         "replaces": "lqp_py_tpu/ops/pallas/admm_step.py:52",
         "launches": launches8_gemv,
         "max_abs_err": max(v["err"] for v in gemv.values()),
+        "launches_big_batch": launches_big, "max_abs_err_big_batch": errb,
         "ms": gemv[0.0]["ms"], "plain_ms": gemv[0.0]["plain_ms"],
         "bound_ms": gemv_bound[0], "bound_by": gemv_bound[1],
         "library_ms": gemv_lib_ms, "ms_in_turns": gemv_turn_ms,

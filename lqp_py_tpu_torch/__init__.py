@@ -4,9 +4,12 @@ A second package beside the JAX one, held against it by the parity tests
 (tests/test_torch_*.py).  Ported so far: the box-QP ADMM solve, direct
 (``solve_box_qp``) and prepared (``prepare_box_qp`` +
 ``solve_box_qp_prepared``), lock-step or with the per-element early-exit
-step (``use_pallas_step=True``); the differentiable layer ``boxqp`` with
-its fixed-point and KKT backward passes, ``BoxQPLayer`` and the stateful
-``BoxQP``; the ``nn.Module``s of ``lqp_py_tpu_torch.nn`` and the
+step (``use_pallas_step=True``), with polish, Anderson acceleration and the
+Cholesky KKT mode; the unrolled solve (``solve_box_qp_unrolled``); the
+differentiable layer ``boxqp`` with its fixed-point, KKT and unrolled
+backward passes, ``BoxQPLayer`` and the stateful ``BoxQP``; the
+equality-constrained and unconstrained solvers (``qp_eqcon``,
+``qp_uncon``); the ``nn.Module``s of ``lqp_py_tpu_torch.nn`` and the
 Experiment-2 trainer (``models/train.py``).  Its three kernels, the
 128x128 SWEEP leaf of the SPD inverse, the early-exit GEMV and the
 whole-matrix block-sweep inverse (``ops/kernels/block_inverse.py``, an
@@ -16,17 +19,22 @@ PyTorch versions run instead.
 """
 
 from lqp_py_tpu_torch.config import BoxQPConfig, box_qp_control
-from lqp_py_tpu_torch.types import BoxQPSolution
+from lqp_py_tpu_torch.types import BoxQPSolution, EqQPSolution
 from lqp_py_tpu_torch.models.box_qp import (
     BoxQPPrepared,
     prepare_box_qp,
     solve_box_qp,
     solve_box_qp_prepared,
+    solve_box_qp_unrolled,
 )
 from lqp_py_tpu_torch.models.layers import BoxQP, BoxQPLayer, boxqp
+from lqp_py_tpu_torch.models.eqcon import qp_eqcon, solve_qp_eqcon
+from lqp_py_tpu_torch.models.uncon import qp_uncon, solve_qp_uncon
 
 __all__ = [
-    "BoxQPConfig", "box_qp_control", "BoxQPSolution", "BoxQPPrepared",
-    "solve_box_qp", "prepare_box_qp", "solve_box_qp_prepared",
+    "BoxQPConfig", "box_qp_control", "BoxQPSolution", "EqQPSolution",
+    "BoxQPPrepared", "solve_box_qp", "solve_box_qp_unrolled",
+    "prepare_box_qp", "solve_box_qp_prepared",
     "boxqp", "BoxQPLayer", "BoxQP",
+    "qp_eqcon", "solve_qp_eqcon", "qp_uncon", "solve_qp_uncon",
 ]

@@ -4,12 +4,10 @@
 construction checks, so one configuration means the same solve in both
 packages (tests/test_torch_package.py holds the two together).  The
 reasoning behind each default is documented on the JAX side
-(lqp_py_tpu/config.py).  Ported: the forward solve (with
-``use_pallas_step``) and both implicit backward modes (``backward`` =
-'fixed_point' or 'kkt', ``backward_reg``).  The options whose slice is not
-ported yet (``polish``, ``acceleration``, ``kkt_solver="cholesky"``, and
-``unroll`` with ``unroll_iters``) are accepted here and rejected by the
-solver or the layer.
+(lqp_py_tpu/config.py).  Every field is ported: the forward solve (with
+``use_pallas_step``, ``polish``, ``acceleration`` and ``kkt_solver``), both
+implicit backward modes (``backward`` = 'fixed_point' or 'kkt',
+``backward_reg``) and the unrolled one (``unroll``, ``unroll_iters``).
 """
 
 from __future__ import annotations

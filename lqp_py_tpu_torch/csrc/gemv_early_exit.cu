@@ -11,7 +11,9 @@
 // predicated.  Nothing of that carries over: on Hopper a block that returns
 // before its first load simply never reads its panel.
 //
-// Design: grid (ceil(n / kRows), B), 256 threads (8 warps).  Each block reads
+// Design: grid (ceil(n / kRows), B), 256 threads (8 warps); a batch of more
+// than 65535 elements (the grid's y limit) is launched in chunks of at most
+// that many on the same stream, each reading its own slice.  Each block reads
 // its element's flag from device memory (no host read).  A frozen block
 // copies its kRows entries of x_prev to out and returns.  An active block
 // stages r[b] in shared memory (4 KB at n = 1024); each warp then takes rows
@@ -43,6 +45,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kDefaultSmem = 48 * 1024;   // above it: opt-in attribute
 constexpr size_t kMaxSmem = 232448;          // 227 KB per block on sm_90
+constexpr int kMaxGridY = 65535;             // a grid's y extent at most
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -117,13 +120,24 @@ extern "C" int gemv_early_exit_f32(const float* P, const float* r,
                                    const float* x_prev,
                                    const uint8_t* converged, float* out,
                                    int B, int n, cudaStream_t s) {
-  if (B < 0 || n < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 0 || n < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return (int)cudaSuccess;
   const size_t smem = (size_t)n * sizeof(float);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // n * n * 4 is a multiple of 16 where n % 4 == 0, so every chunk's P
+  // keeps the first one's alignment.
   const bool vec = (n % 4 == 0) && ((uintptr_t)P % 16 == 0);
-  return vec ? launch<true>(P, r, x_prev, converged, out, B, n, smem, s)
-             : launch<false>(P, r, x_prev, converged, out, B, n, smem, s);
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = min(kMaxGridY, B - b0);
+    const size_t v0 = (size_t)b0 * n;        // the chunk's first vector entry
+    const int rc =
+        vec ? launch<true>(P + v0 * n, r + v0, x_prev + v0, converged + b0,
+                           out + v0, nb, n, smem, s)
+            : launch<false>(P + v0 * n, r + v0, x_prev + v0, converged + b0,
+                            out + v0, nb, n, smem, s);
+    if (rc != (int)cudaSuccess) return rc;
+  }
+  return (int)cudaSuccess;
 }
 
 // Registers per thread and local-memory bytes per thread of the vector path

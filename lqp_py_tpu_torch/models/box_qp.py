@@ -1,5 +1,4 @@
-"""Batched box-QP ADMM solver, forward pass (counterpart of
-``lqp_py_tpu.models.box_qp``).
+"""Batched box-QP ADMM solver (counterpart of ``lqp_py_tpu.models.box_qp``).
 
 Solves (batched over a leading axis)
 
@@ -14,11 +13,20 @@ iterations, a primal-infeasibility certificate, and per-element adaptive
 rho with refactorization.  With ``use_pallas_step`` each iteration is the
 early-exit step instead (``ops/kernels/admm_step.py``): one GEMV against
 the materialized reduced inverse ``P`` that skips converged elements,
-which stay frozen until the batch stops.  Where the JAX package traces a
+which stay frozen until the batch stops.  ``kkt_solver='cholesky'`` applies
+the KKT inverse by triangular solves (the early-exit step is off there, as
+in the JAX package); ``acceleration=m`` adds safeguarded Anderson steps on
+``v = [z; u]`` (``ops/anderson.py``); ``polish=True`` re-solves each
+element on its detected active set (``models/_polish.py``) and keeps the
+polished point where it is no worse.  Where the JAX package traces a
 ``lax.while_loop``, this module runs a Python loop: the ``cs`` iterations
 between two residual checks are queued on the device, and each check reads
 two flags back to the host ("every element done", "some rho pending"),
 one synchronization per check.
+
+``solve_box_qp_unrolled`` is the differentiable-by-unrolling solve: a
+fixed number of iterations recorded by autograd, each KKT solve
+differentiated through cached factors (``kkt_solve_cached``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from lqp_py_tpu_torch.config import BoxQPConfig
+from lqp_py_tpu_torch.models._polish import box_penalty_polish
+from lqp_py_tpu_torch.ops import anderson
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops import scaling as sca
 from lqp_py_tpu_torch.ops.kernels.admm_step import fused_admm_step
@@ -44,10 +54,10 @@ def _inf_norm(v):
     return v.abs().amax(dim=-1)
 
 
-def _prep_h(Q, p, A, b, lb, ub, config, pad: int = 0):
-    """Canonicalize shapes, take the unscaled p-norm, and build the scaled,
-    lane-padded factorization operand ``H = D Q D + rho I`` in one pass
-    (``scale_problem_h``).  Every input moves to Q's device and dtype."""
+def _canonical(Q, p, A, b, lb, ub, config):
+    """Symmetrize Q (``config.symmetrize``) and bring every input to (B, n)
+    / (B, m) layout on Q's device and dtype, with infinite bounds where
+    none are given."""
     Q = torch.as_tensor(Q)
     if config.symmetrize:
         Q = 0.5 * (Q + Q.mT)
@@ -60,6 +70,42 @@ def _prep_h(Q, p, A, b, lb, ub, config, pad: int = 0):
           else as_vector(lb, "lb").to(**kw))
     ub = (torch.full((B, n), math.inf, **kw) if ub is None
           else as_vector(ub, "ub").to(**kw))
+    return Q, p, A, b, lb, ub
+
+
+def _prep(Q, p, A, b, lb, ub, config, pad: int = 0):
+    """The unfused preparation of the unrolled solve: canonical shapes, the
+    unscaled p-norm, the scaled problem (``scale_problem`` or
+    ``identity_scaling``, differentiable in every input) and rho.
+    Returns ``(ScaledProblem, p_norm, rho)``."""
+    Q, p, A, b, lb, ub = _canonical(Q, p, A, b, lb, ub, config)
+    B, n = p.shape
+    p_norm = _inf_norm(p)
+    if config.scale:
+        sp = sca.scale_problem(Q, p, A, b, lb, ub, beta=config.beta, pad=pad)
+    else:
+        sp = sca.identity_scaling(Q, p, A, b, lb, ub, pad=pad)
+    if config.rho is None:
+        # The identity pad block contributes exactly ``pad`` to sum(Q^2).
+        q_fro = torch.sqrt(torch.clamp(
+            (sp.Q * sp.Q).sum(dim=(-1, -2)) - pad, min=0.0))
+        rho = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
+                          config.rho_min, config.rho_max)
+    else:
+        rho = torch.full((B,), float(config.rho), dtype=p.dtype,
+                         device=p.device)
+    # With no finite bound anywhere in the batch rho is forced to 0.
+    any_ineq = (lb.amax() > -math.inf) | (ub.amin() < math.inf)
+    return sp, p_norm, torch.where(any_ineq, rho, torch.zeros_like(rho))
+
+
+def _prep_h(Q, p, A, b, lb, ub, config, pad: int = 0):
+    """Canonicalize shapes, take the unscaled p-norm, and build the scaled,
+    lane-padded factorization operand ``H = D Q D + rho I`` in one pass
+    (``scale_problem_h``).  Every input moves to Q's device and dtype."""
+    Q, p, A, b, lb, ub = _canonical(Q, p, A, b, lb, ub, config)
+    kw = dict(dtype=Q.dtype, device=Q.device)
+    B, n = p.shape
 
     # The dual tolerance uses the unscaled p-norm.
     p_norm = _inf_norm(p)
@@ -81,20 +127,11 @@ def _prep_h(Q, p, A, b, lb, ub, config, pad: int = 0):
     return sph, p_norm, rho
 
 
-def _check_supported(config: BoxQPConfig) -> None:
-    if config.kkt_solver not in ("inverse", "cholesky"):
-        raise ValueError(f"unknown kkt_solver {config.kkt_solver!r}")
-    later = [name for name, on in (
-        ("polish=True", config.polish),
-        ("acceleration>0", config.acceleration > 0),
-        ("kkt_solver='cholesky'", config.kkt_solver == "cholesky"),
-    ) if on]
-    if later:
-        raise NotImplementedError(
-            f"lqp_py_tpu_torch does not port {', '.join(later)} yet: the "
-            f"forward slice covers the inverse-mode ADMM solve; polish, "
-            f"Anderson acceleration and the Cholesky KKT mode come with "
-            f"later slices of the port")
+def _mode(config: BoxQPConfig) -> str:
+    mode = config.kkt_solver
+    if mode not in ("inverse", "cholesky"):
+        raise ValueError(f"unknown kkt_solver {mode!r}")
+    return mode
 
 
 #: Lane alignment of the variable axis.  The port keeps the JAX package's
@@ -104,13 +141,17 @@ def _check_supported(config: BoxQPConfig) -> None:
 _ALIGN = 128
 
 
-def _padded_n(config: BoxQPConfig, n: int) -> int:
-    align = 256 if config.use_pallas_step else _ALIGN
-    return -(-n // align) * align
+def _padded_n(config: BoxQPConfig, n: int, mode: str):
+    """``(n_pad, use_pallas)``: the early-exit step runs in inverse mode
+    only, and is silently off in Cholesky mode, as in the JAX package."""
+    use_pallas = bool(config.use_pallas_step) and mode == "inverse"
+    align = 256 if use_pallas else _ALIGN
+    return -(-n // align) * align, use_pallas
 
 
 def _pad_identity(M, pad):
-    """Pad (B, n, n) to (B, n+pad, n+pad) with an identity block."""
+    """Pad (B, n, n) to (B, n+pad, n+pad) with an identity block (valid for
+    SPD matrices and their lower Cholesky factors alike)."""
     n = M.shape[-1]
     out = F.pad(M, (0, pad, 0, pad))
     out.diagonal(dim1=-2, dim2=-1)[:, n:] = 1.0
@@ -121,9 +162,10 @@ def _pad_factors(f: lin.KKTFactors, pad: int) -> lin.KKTFactors:
     """Resize cached KKT factors to the solve's aligned size.
 
     pad > 0: zero-pad P/Hinv and W/WS's rows (the padded coordinates' r is
-    identically 0).  pad < 0: slice, which is exact because the factors
-    were built from an identity-padded H with zero-padded A columns: the
-    padded block decouples, so P, Hinv and W restrict to the leading block.
+    identically 0), and pad L with an identity block.  pad < 0: slice,
+    which is exact because the factors were built from an identity-padded
+    H with zero-padded A columns: the padded block decouples, so P, Hinv,
+    L and W restrict to the leading block.
     This happens when ``prepare_box_qp`` aligned to another tile than the
     solve-time config (e.g. prepared for the early-exit step at 256, solved
     without it at 128)."""
@@ -143,8 +185,10 @@ def _pad_factors(f: lin.KKTFactors, pad: int) -> lin.KKTFactors:
     def opt(fn, a):
         return None if a is None else fn(a)
 
+    L = (opt(nn, f.L) if pad < 0 else
+         opt(lambda a: _pad_identity(a, pad), f.L))
     return dataclasses.replace(f, P=opt(nn, f.P), Hinv=opt(nn, f.Hinv),
-                               W=opt(nm, f.W), WS=opt(nm, f.WS))
+                               W=opt(nm, f.W), WS=opt(nm, f.WS), L=L)
 
 
 @solver_precision
@@ -160,10 +204,9 @@ def solve_box_qp(Q, p, A=None, b=None, lb=None, ub=None,
     ``x``, ``z``, ``u`` in unscaled (B, n) layout) to start the iterates
     from.
     """
-    _check_supported(config)
     nv = as_vector(p, "p").shape[-1]
-    sph, p_norm, rho0 = _prep_h(Q, p, A, b, lb, ub, config,
-                                pad=_padded_n(config, nv) - nv)
+    n_pad, _ = _padded_n(config, nv, _mode(config))
+    sph, p_norm, rho0 = _prep_h(Q, p, A, b, lb, ub, config, pad=n_pad - nv)
     return _solve_scaled(config, sph.p, sph.A, sph.b, sph.lb, sph.ub,
                          sph.D, sph.E, p_norm, rho0, None, warm_start,
                          H0=sph.H)
@@ -178,6 +221,8 @@ class BoxQPPrepared:
     solves, the scaling and the factorization are paid once.  ``H`` is the
     lane-padded factorization operand ``D Q D + rho0 I``, the same object
     the direct solve builds, so a prepared solve reproduces a direct one.
+    ``mode`` is the ``kkt_solver`` the factors were built for; a solve with
+    another mode raises.
     """
     H: torch.Tensor
     As: Optional[torch.Tensor]
@@ -188,6 +233,7 @@ class BoxQPPrepared:
     E: Optional[torch.Tensor]
     rho0: torch.Tensor
     factors: lin.KKTFactors
+    mode: str = "inverse"
 
 
 @solver_precision
@@ -195,18 +241,18 @@ def prepare_box_qp(Q, A=None, b=None, lb=None, ub=None,
                    config: BoxQPConfig = BoxQPConfig()) -> BoxQPPrepared:
     """Precompute everything that does not depend on ``p``: scaling,
     auto-rho, and the KKT factorization."""
-    _check_supported(config)
+    mode = _mode(config)
     Q = torch.as_tensor(Q)
     n = Q.shape[-1]
     p0 = Q.new_zeros(Q.shape[:-1])
-    sph, _p_norm, rho0 = _prep_h(Q, p0, A, b, lb, ub, config,
-                                 pad=_padded_n(config, n) - n)
-    factors = lin.factorize_kkt(sph.H, None, sph.A,
+    n_pad, use_pallas = _padded_n(config, n, mode)
+    sph, _p_norm, rho0 = _prep_h(Q, p0, A, b, lb, ub, config, pad=n_pad - n)
+    factors = lin.factorize_kkt(sph.H, None, sph.A, mode=mode,
                                 equilibrate=not config.scale,
-                                materialize_p=config.use_pallas_step)
+                                materialize_p=use_pallas)
     return BoxQPPrepared(H=sph.H, As=sph.A, bs=sph.b, lbs=sph.lb,
                          ubs=sph.ub, D=sph.D, E=sph.E, rho0=rho0,
-                         factors=factors)
+                         factors=factors, mode=mode)
 
 
 @solver_precision
@@ -214,7 +260,11 @@ def solve_box_qp_prepared(prep: BoxQPPrepared, p,
                           config: BoxQPConfig = BoxQPConfig(),
                           warm_start=None) -> BoxQPSolution:
     """Solve for a new cost vector ``p`` against a cached preparation."""
-    _check_supported(config)
+    if prep.mode != _mode(config):
+        raise ValueError(
+            f"BoxQPPrepared was built with kkt_solver={prep.mode!r} but the "
+            f"solve config requests {config.kkt_solver!r}; re-run "
+            f"prepare_box_qp with the matching config")
     pv = as_vector(p, "p").to(dtype=prep.H.dtype, device=prep.H.device)
     p_norm = _inf_norm(pv)
     ps = prep.D * pv
@@ -237,8 +287,8 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
     cs = config.resolved_check_interval(n)
     adaptive_interval = config.resolved_adaptive_interval(n)
     max_iters = int(config.max_iters)
-    use_pallas = bool(config.use_pallas_step)
-    n_pad = _padded_n(config, n)
+    mode = _mode(config)
+    n_pad, use_pallas = _padded_n(config, n, mode)
     pad = n_pad - n
     built = H0.shape[-1]
     if built < n_pad:
@@ -254,19 +304,23 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
     equilibrate = not config.scale
 
     def _q_of(f):
-        return lin.kkt_step_operator(f, bs)[1]
+        op = lin.kkt_step_operator(f, bs)
+        return (torch.zeros((B, n_pad), dtype=dtype, device=device)
+                if op is None else op[1])
 
     def factorize(rho):
         # Shift only the leading-n diagonal: the pad block's identity stays
         # put, so a downward rho move cannot push its pivots toward zero.
         Hr = H0.clone()
         Hr.diagonal(dim1=-2, dim2=-1)[:, :n] += (rho - rho0)[:, None]
-        f = lin.factorize_kkt(Hr, None, As, equilibrate=equilibrate,
+        f = lin.factorize_kkt(Hr, None, As, mode=mode,
+                              equilibrate=equilibrate,
                               materialize_p=use_pallas)
         return f, _q_of(f)
 
     if factors_in is None:
-        factors = lin.factorize_kkt(H0, None, As, equilibrate=equilibrate,
+        factors = lin.factorize_kkt(H0, None, As, mode=mode,
+                                    equilibrate=equilibrate,
                                     materialize_p=use_pallas)
     else:
         factors = factors_in
@@ -276,7 +330,8 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
             factors = dataclasses.replace(
                 factors, P=factors.Hinv if factors.W is None
                 else factors.Hinv - factors.WS @ factors.W.mT)
-        dense = factors.P if factors.P is not None else factors.Hinv
+        dense = next(a for a in (factors.P, factors.Hinv, factors.L)
+                     if a is not None)
         if dense.shape[-1] != n_pad:
             factors = _pad_factors(factors, n_pad - dense.shape[-1])
     q = _q_of(factors)
@@ -292,9 +347,12 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
 
     def x_update(f, q, r):
         # x = P r + q where P is materialized, else x = Hinv r - WS (W^T r)
-        # + q: one dense GEMV and two rank-n_eq corrections.
+        # + q: one dense GEMV and two rank-n_eq corrections.  Cholesky mode
+        # takes the triangular solves of kkt_apply.
         if f.P is not None:
             return lin._mv(f.P, r) + q
+        if f.Hinv is None:
+            return lin.kkt_apply(f, r, bs)[0]
         y = lin._mv(f.Hinv, r)
         if f.W is not None:
             y = y - lin._mv(f.WS, lin._mv(f.W.mT, r))
@@ -310,6 +368,9 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         u = _w(warm_start.u, D)
     else:
         x = z = u = torch.zeros((B, n_pad), dtype=dtype, device=device)
+    m_aa = int(config.acceleration)
+    aa = (anderson.aa_init(B, m_aa, 2 * n_pad, dtype, device) if m_aa
+          else None)
 
     it = 0
     last_r = -ps_p
@@ -380,13 +441,26 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
                 last_r = torch.where(is_optimal[:, None], last_r,
                                      -ps_p + rho_c * (z_prev - u_prev))
             else:
-                for _ in range(n_inner):
+                for i in range(n_inner):
                     r = -ps_p + rho_c * (z - u)
                     x = x_update(factors, q, r)
                     z_prev = z
                     xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
-                    z = torch.clamp(xh + u, lbs_p, ubs_p)
-                    u = u + (xh - z)
+                    z_new = torch.clamp(xh + u, lbs_p, ubs_p)
+                    u_new = u + (xh - z_new)
+                    if m_aa:
+                        # A safeguarded Anderson step on v = [z; u]; padded
+                        # coordinates stay 0 (every history column is 0
+                        # there).
+                        v_next, aa = anderson.aa_step(
+                            aa, torch.cat([z, u], dim=-1),
+                            torch.cat([z_new, u_new], dim=-1),
+                            (it + i) % m_aa, hold=is_optimal,
+                            safeguard=float(config.aa_safeguard),
+                            reg=float(config.aa_reg),
+                            max_weight=float(config.aa_max_weight))
+                        z_new, u_new = v_next[:, :n_pad], v_next[:, n_pad:]
+                    z, u = z_new, u_new
                 last_r = r
             xs_c, zs_c, us_c, zp_c = (v[:, :n] for v in (x, z, u, z_prev))
 
@@ -488,6 +562,10 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         rho_new = torch.where(rho_pending, rho * rho_ratio(), rho)
         rho = torch.clamp(rho_new, config.rho_min, config.rho_max)
         factors, q = factorize(rho)
+        if m_aa:
+            # A rho update changes the fixed-point map: reset the updated
+            # elements' history.
+            aa = anderson.aa_reset_where(aa, rho_pending)
         rho_pending = torch.zeros_like(rho_pending)
         pending = False
 
@@ -496,9 +574,18 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
     if As is not None:
         nus = lin._mv(factors.Sinv, lin._mv(factors.W.mT, last_r) - bs) * E
     xs, zs, us = x[:, :n], z[:, :n], u[:, :n]
+    if m_aa:
+        # An accepted Anderson step is an affine combination of clipped
+        # iterates (weights may be negative): project z back into the box.
+        zs = torch.clamp(zs, lbs, ubs)
     rho_c = rho[..., None]
     lam_lo_s = torch.clamp(-us * rho_c, min=0.0)
     lam_hi_s = torch.clamp(us * rho_c, min=0.0)
+    polished = None
+    if config.polish:
+        xs, zs, lam_lo_s, lam_hi_s, nus, polished = _polish(
+            config, H0, rho0, ps, As_u, bs, lbs, ubs, E, xs, zs, us,
+            lam_lo_s, lam_hi_s, nus, pinf, m_aa)
 
     trace_out = None
     if K:
@@ -512,4 +599,147 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         nus=nus, rho=rho, iterations=it,
         primal_residual=primal_error, dual_residual=dual_error,
         converged=is_optimal, primal_infeasible=pinf,
-        residual_trace=trace_out)
+        residual_trace=trace_out, polished=polished)
+
+
+def _polish(config, H0, rho0, ps, As_u, bs, lbs, ubs, E, xs, zs, us,
+            lam_lo_s, lam_hi_s, nus, pinf, m_aa):
+    """Active-set polish of the final iterate on the scaled problem, taken
+    per element where it is no less feasible than the iterate and its
+    active multipliers are >= -eps_abs.  Returns the (possibly polished)
+    ``xs, zs, lam_lo_s, lam_hi_s, nus`` and the accepted mask."""
+    n = xs.shape[-1]
+    dtype = xs.dtype
+    # The scaled Q rebuilt from the factorization operand, as the JAX
+    # package does (it cancels on the diagonal in float32 when rho0 is near
+    # rho_max; kept for parity, ROADMAP's reference faults).
+    Qs_u = H0[:, :n, :n] - rho0[:, None, None] * torch.eye(
+        n, dtype=dtype, device=xs.device)
+    # Proximity at tolerance scale (the scaled problem is equilibrated).
+    prox = 10 * torch.tensor(config.eps_abs + config.eps_rel, dtype=dtype,
+                              device=xs.device)
+    if m_aa:
+        # Anderson's u is an affine combination (sign noise on inactive
+        # coordinates): detect by proximity alone, and pin a coordinate
+        # detected on both sides of a narrow box at the iterate's z.
+        act_lo = torch.isfinite(lbs) & (zs - lbs <= prox)
+        act_hi = torch.isfinite(ubs) & (ubs - zs <= prox)
+        both = act_lo & act_hi
+        lbs_pol = torch.where(both, zs, lbs)
+        ubs_pol = torch.where(both, zs, ubs)
+    else:
+        # Sign of u plus proximity: over-relaxation leaves small u on
+        # barely-inactive coordinates.
+        act_lo = (us < 0) & (zs - lbs <= prox)
+        act_hi = (us > 0) & (ubs - zs <= prox)
+        lbs_pol, ubs_pol = lbs, ubs
+    pol = box_penalty_polish(Qs_u, ps, As_u, bs, lbs_pol, ubs_pol, act_lo,
+                             act_hi)
+    thr = torch.tensor(config.eps_abs, dtype=dtype, device=xs.device)
+
+    def viol(xv):
+        v_lo = torch.where(torch.isfinite(lbs), lbs - xv, -math.inf)
+        v_hi = torch.where(torch.isfinite(ubs), xv - ubs, -math.inf)
+        v = torch.maximum(v_lo, v_hi).amax(dim=-1)
+        if As_u is not None:
+            eq = lin._mv(As_u, xv) - bs
+            v = torch.maximum(v, eq.abs().amax(dim=-1))
+        return v
+
+    lam_min = torch.minimum(pol.lam_lo, pol.lam_hi).amin(dim=-1)
+    ok = ((viol(pol.x) <= torch.clamp(viol(xs), min=thr))
+          & (lam_min >= -thr) & ~pinf)
+    okc = ok[..., None]
+    xs = torch.where(okc, pol.x, xs)
+    zs = torch.where(okc, torch.clamp(pol.x, lbs, ubs), zs)
+    lam_lo_s = torch.where(okc, torch.clamp(pol.lam_lo, min=0.0), lam_lo_s)
+    lam_hi_s = torch.where(okc, torch.clamp(pol.lam_hi, min=0.0), lam_hi_s)
+    if As_u is not None:
+        nus = torch.where(okc, pol.y * E, nus)
+    return xs, zs, lam_lo_s, lam_hi_s, nus, ok
+
+
+@solver_precision
+def solve_box_qp_unrolled(Q, p, A=None, b=None, lb=None, ub=None,
+                          config: BoxQPConfig = BoxQPConfig()):
+    """Differentiable-by-unrolling box-QP solve: autograd records every
+    iteration.
+
+    Runs ``config.unroll_iters`` iterations (default min(max_iters, 500))
+    in blocks of the check interval ``cs``, with the batch-global OSQP
+    convergence test after each block.  The factors are built once from
+    the detached scaled problem; each iteration's KKT solve is
+    differentiated through them (``kkt_solve_cached``), so gradients reach
+    Q, p, A, b, lb and ub through the scaling as well.  rho is a constant
+    of the graph and adaptive rho is off on this path, as in the JAX
+    package.  Returns ``D * x`` only.
+
+    The JAX package scans a fixed length and freezes every update once the
+    batch is done; here the loop stops there instead.  A frozen step is the
+    identity in value and in gradient, so x and every gradient are the
+    same (tests/test_torch_unrolled.py holds the two lengths equal).
+    """
+    if config.acceleration:
+        raise ValueError(
+            "acceleration is not implemented for the unrolled solver; "
+            "use solve_box_qp or acceleration=0")
+    if config.polish:
+        raise ValueError(
+            "polish is not implemented for the unrolled solver; "
+            "use solve_box_qp or polish=False")
+    sp, p_norm, rho0 = _prep(Q, p, A, b, lb, ub, config)
+    Qs, ps, As, bs, lbs, ubs, D, _E = sp
+    B, n = ps.shape
+
+    has_alpha = float(config.alpha) != 1.0
+    any_finite = (lbs.amax() > -math.inf) | (ubs.amin() < math.inf)
+    alpha_t = torch.where(any_finite,
+                          torch.tensor(float(config.alpha), dtype=ps.dtype,
+                                       device=ps.device),
+                          torch.tensor(1.0, dtype=ps.dtype,
+                                       device=ps.device))
+    cs = config.resolved_check_interval(n)
+    n_iters = config.unroll_iters
+    if n_iters is None:
+        n_iters = min(int(config.max_iters), 500)
+    n_outer = max(-(-n_iters // cs), 1)
+    eps_abs = max(float(config.eps_abs), 1e-12)
+    eps_rel = max(float(config.eps_rel), 1e-12)
+
+    # rho is a constant of the graph (the ADMM fixed point does not depend
+    # on it), and the factors are built from detached operands: they get
+    # no gradient.
+    rho = rho0.detach()
+    Qs_d, D_d, p_norm_d = Qs.detach(), D.detach(), p_norm.detach()
+    factors = lin.factorize_kkt(Qs_d, rho, None if As is None
+                                else As.detach(), mode=_mode(config))
+    rho_c = rho[..., None]
+
+    x = z = u = torch.zeros((B, n), dtype=ps.dtype, device=ps.device)
+    for _ in range(n_outer):
+        for _ in range(cs):
+            r = -ps + rho_c * (z - u)
+            x, _nu = lin.kkt_solve_cached(factors, Qs, As, r, bs)
+            xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
+            z_last = z
+            # clip as maximum then minimum: ties split the gradient as
+            # jnp.clip's do.
+            z = torch.minimum(torch.maximum(xh + u, lbs), ubs)
+            u = u + (xh - z)
+        with torch.no_grad():
+            xs, zs, us, zps = (v.detach() for v in (x, z, u, z_last))
+            primal_error = _inf_norm(D_d * (xs - zs))
+            dual_error = _inf_norm(D_d * (rho_c * (zs - zps)))
+            x_norm = _inf_norm(D_d * xs)
+            z_norm = _inf_norm(D_d * zs)
+            y_norm = _inf_norm(rho_c * D_d * us)
+            Qx_norm = _inf_norm(lin._mv(Qs_d, xs) / D_d)
+            tolp = eps_abs + eps_rel * torch.clamp(
+                torch.maximum(x_norm, z_norm), min=_ZERO_CLAMP)
+            told = eps_abs + eps_rel * torch.clamp(
+                torch.maximum(torch.maximum(y_norm, Qx_norm), p_norm_d),
+                min=_ZERO_CLAMP)
+            done = bool(((primal_error < tolp) & (dual_error < told)).all())
+        if done:
+            break
+    return D * x

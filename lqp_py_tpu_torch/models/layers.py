@@ -1,7 +1,8 @@
 """Differentiable box-QP layer (counterpart of ``lqp_py_tpu.models.layers``).
 
 - ``boxqp(...)``: a ``torch.autograd.Function`` around the forward solve
-  with the implicit fixed-point or KKT backward (``config.backward``).
+  with the implicit fixed-point or KKT backward (``config.backward``), or,
+  with ``config.unroll``, the unrolled solve under plain autograd.
 - ``BoxQPLayer``: an ``nn.Module`` holding the config.
 - ``BoxQP``: the stateful solve/update wrapper (cached preparation, p-only
   updates keep it, optional warm starts).
@@ -18,7 +19,8 @@ from lqp_py_tpu_torch.config import BoxQPConfig
 from lqp_py_tpu_torch.models import box_qp_grad as grads
 from lqp_py_tpu_torch.models._stateful import StatefulQP
 from lqp_py_tpu_torch.models.box_qp import (prepare_box_qp, solve_box_qp,
-                                            solve_box_qp_prepared)
+                                            solve_box_qp_prepared,
+                                            solve_box_qp_unrolled)
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import as_vector, like_layout
 
@@ -79,14 +81,11 @@ def boxqp(Q, p, A=None, b=None, lb=None, ub=None,
 
     Returns ``x`` in the caller's layout ((B, n, 1) in, (B, n, 1) out).
     Gradients flow to Q, p, A, b, lb and ub through the backward mode of
-    ``config`` ('fixed_point', the default, or 'kkt').  ``config.unroll``
-    (differentiating through the iterations) raises: it comes with a later
-    slice of the port."""
+    ``config`` ('fixed_point', the default, or 'kkt'), or, with
+    ``config.unroll``, through the unrolled iterations."""
     if config.unroll:
-        raise NotImplementedError(
-            "lqp_py_tpu_torch does not port unroll=True yet: "
-            "differentiating through the ADMM iterations comes with a later "
-            "slice of the port; use backward='fixed_point' or 'kkt'")
+        return like_layout(solve_box_qp_unrolled(Q, p, A, b, lb, ub, config),
+                           p)
     pv = as_vector(p, "p")
     bv = None if b is None else as_vector(b, "b")
     lbv = None if lb is None else as_vector(lb, "lb")

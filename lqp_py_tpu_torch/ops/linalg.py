@@ -1,5 +1,5 @@
 """Batched KKT factorization and solves (counterpart of
-``lqp_py_tpu.ops.linalg``, inverse mode).
+``lqp_py_tpu.ops.linalg``).
 
 The KKT operator
 
@@ -12,8 +12,14 @@ is reduced by a Schur complement on ``Hinv = H^-1``:
     x    = P r + W S^-1 b,       P = H^-1 - W S^-1 W^T,  W = H^-1 A^T
     nu   = S^-1 (W^T r - b)
 
-P is never built: an ADMM iteration is one dense ``Hinv`` GEMV plus two
-rank-``n_eq`` corrections.
+In mode 'inverse' P is built only on request (the early-exit step's
+operand): an ADMM iteration is one dense ``Hinv`` GEMV plus two
+rank-``n_eq`` corrections.  Mode 'cholesky' keeps ``L = chol(H)`` and
+applies ``H^-1`` by two triangular solves; ``torch.linalg.cholesky`` and
+``solve_triangular`` stand for ``lax.linalg``, which the JAX package runs
+outside any Pallas kernel, so this mode launches no SWEEP leaf.
+``kkt_solve_cached`` differentiates one factored solve through the cached
+factors (the unrolled solve's building block).
 
 ``spd_inverse_fast`` picks the inverse by dtype, on every device: float64
 takes the Cholesky inverse (as the JAX package does wherever its Pallas
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from lqp_py_tpu_torch.ops.kernels.spd_inverse import LEAF, sweep_spd_inverse
+from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
 
 #: Below this size the batch-major Gauss-Jordan replaces the 128-padded
 #: sweep leaf (a (B, n, n) inverse at n <= 64 would otherwise pad to a
@@ -224,22 +231,35 @@ def spd_solve_fast(H, R, equilibrate: bool = True,
 
 @dataclasses.dataclass
 class KKTFactors:
-    """Factorization state of the reduced KKT operator (inverse mode).
+    """Factorization state of the reduced KKT operator.
 
-    ``Hinv = (Q + rho I)^-1`` plus the low-rank pieces ``W = H^-1 A^T``,
-    ``WS = W S^-1`` and ``Sinv = (A H^-1 A^T)^-1``; the reduced inverse
-    ``P = Hinv - WS W^T`` is applied implicitly unless materialized (``P``,
-    else None).  ``W``/``WS``/``Sinv`` are None when n_eq == 0.
+    Mode 'inverse': ``Hinv = (Q + rho I)^-1`` plus the low-rank pieces
+    ``W = H^-1 A^T``, ``WS = W S^-1`` and ``Sinv = (A H^-1 A^T)^-1``; the
+    reduced inverse ``P = Hinv - WS W^T`` is applied implicitly unless
+    materialized (``P``, else None).  Mode 'cholesky': ``L = chol(H)``,
+    ``W`` and ``Sinv``; ``Hinv``, ``WS`` and ``P`` are None.
+    ``W``/``WS``/``Sinv`` are None when n_eq == 0.
     """
 
-    Hinv: torch.Tensor
+    Hinv: Optional[torch.Tensor] = None
     W: Optional[torch.Tensor] = None
     Sinv: Optional[torch.Tensor] = None
     WS: Optional[torch.Tensor] = None
     P: Optional[torch.Tensor] = None
+    L: Optional[torch.Tensor] = None
 
 
-def factorize_kkt(Q, rho, A, *, equilibrate: bool = True,
+def _schur_pieces(A, W, s_reg):
+    """``Sinv = (A W + s_reg I)^-1`` for W = H^-1 A^T."""
+    S = A @ W                                       # (B, m, m)
+    if s_reg:
+        S = S + s_reg * torch.eye(S.shape[-1], dtype=S.dtype,
+                                  device=S.device)
+    return spd_inverse(S)
+
+
+def factorize_kkt(Q, rho, A, *, mode: str = "inverse", s_reg: float = 0.0,
+                  equilibrate: bool = True,
                   materialize_p: bool = False) -> KKTFactors:
     """Factorize ``M = [[Q + rho I, A^T], [A, 0]]`` (batched).
 
@@ -247,9 +267,12 @@ def factorize_kkt(Q, rho, A, *, equilibrate: bool = True,
     rho: (B,) or scalar — per-element ADMM penalty.  ``None`` means Q is
       already the shifted operand ``H`` (``scale_problem_h``).
     A:   (B, m, n) or None
+    mode: 'inverse' (``spd_inverse_fast``) or 'cholesky' (``L = chol(H)``).
+    s_reg: Tikhonov term added to the Schur complement.
     equilibrate: passed to ``spd_inverse_fast``.
     materialize_p: also build the dense reduced inverse ``P`` (the operator
       of the early-exit step); ``P`` is ``Hinv`` itself when A is None.
+      Inverse mode only.
     """
     if rho is None:
         H = Q
@@ -258,12 +281,19 @@ def factorize_kkt(Q, rho, A, *, equilibrate: bool = True,
         rho_diag = (rho[..., None, None] if rho.ndim == 1 else rho)
         H = Q + rho_diag * torch.eye(Q.shape[-1], dtype=Q.dtype,
                                      device=Q.device)
+    if mode == "cholesky":
+        L = torch.linalg.cholesky(H)
+        if A is None:
+            return KKTFactors(L=L)
+        W = chol_solve(L, A.mT)                     # (B, n, m)
+        return KKTFactors(L=L, W=W, Sinv=_schur_pieces(A, W, s_reg))
+    if mode != "inverse":
+        raise ValueError(f"unknown kkt_solver {mode!r}")
     Hinv = spd_inverse_fast(H, equilibrate=equilibrate)
     if A is None:
         return KKTFactors(Hinv=Hinv, P=Hinv if materialize_p else None)
     W = Hinv @ A.mT                                 # (B, n, m)
-    S = A @ W                                       # (B, m, m)
-    Sinv = spd_inverse(S)
+    Sinv = _schur_pieces(A, W, s_reg)
     WS = W @ Sinv
     P = Hinv - WS @ W.mT if materialize_p else None
     return KKTFactors(Hinv=Hinv, W=W, Sinv=Sinv, WS=WS, P=P)
@@ -274,20 +304,70 @@ def kkt_apply(f: KKTFactors, r, b):
 
     r: (B, n); b: (B, m) or None.  Returns (x, nu).
     """
-    y = _mv(f.Hinv, r)
+    dense = f.P if f.P is not None else f.Hinv
     if f.W is None:
-        return y, None
+        x = _mv(dense, r) if dense is not None else chol_solve(f.L, r)
+        return x, None
     nu = _mv(f.Sinv, _mv(f.W.mT, r) - b)
+    if f.P is not None:
+        # x = P r + W Sinv b
+        return _mv(f.P, r) + _mv(f.W, _mv(f.Sinv, b)), nu
+    y = _mv(f.Hinv, r) if f.Hinv is not None else chol_solve(f.L, r)
     return y - _mv(f.W, nu), nu
 
 
 def kkt_step_operator(f: KKTFactors, b):
     """``(dense, q)`` such that the ADMM x-update is ``x = P r + q``
     (``dense`` is the materialized ``P``) or ``x = Hinv r - WS (W^T r) + q``
-    (``dense`` is ``Hinv``), with the constant ``q = W Sinv b``."""
+    (``dense`` is ``Hinv``), with the constant ``q = W Sinv b``; None
+    outside inverse mode (the caller takes ``kkt_apply``)."""
     dense = f.P if f.P is not None else f.Hinv
+    if dense is None:
+        return None
     if f.W is None or b is None:
         q = dense.new_zeros(dense.shape[:-1])
     else:
         q = _mv(f.W, _mv(f.Sinv, b))
     return dense, q
+
+
+class _KKTSolveCached(torch.autograd.Function):
+    """``[x; nu] = M(Q, A)^-1 [r; b]`` through prefactored, detached
+    factors.  The backward is one more factored solve: with
+    ``[dx; dnu] = M^-1 [-g_x; -g_nu]``, ``dQ = dx x^T``,
+    ``dA = dnu x^T + nu dx^T``, ``dr = -dx`` and ``db = -dnu``.  The factors
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, factors, Q, A, r, b):
+        x, nu = kkt_apply(factors, r, b)
+        ctx.factors = factors
+        ctx.save_for_backward(x, nu)
+        return (x,) if nu is None else (x, nu)
+
+    @staticmethod
+    def backward(ctx, g_x, g_nu=None):
+        x, nu = ctx.saved_tensors
+        need = ctx.needs_input_grad          # (factors, Q, A, r, b)
+        if nu is not None and g_nu is None:
+            g_nu = torch.zeros_like(nu)
+        with highest_matmul_precision():
+            dx, dnu = kkt_apply(ctx.factors, -g_x,
+                                None if nu is None else -g_nu)
+            dQ = dx[..., :, None] * x[..., None, :] if need[1] else None
+            dA = db = None
+            if nu is not None:
+                if need[2]:
+                    dA = (dnu[..., :, None] * x[..., None, :]
+                          + nu[..., :, None] * dx[..., None, :])
+                db = -dnu
+        return None, dQ, dA, -dx, db
+
+
+def kkt_solve_cached(factors: KKTFactors, Q, A, r, b):
+    """Solve ``M(Q, A) [x; nu] = [r; b]`` with prefactored ``factors``
+    (built from detached operands).  Gradients flow to Q, A, r and b, and
+    none to the factors.  ``A``/``b`` may be None; returns ``(x, nu)``
+    with ``nu`` None then."""
+    out = _KKTSolveCached.apply(factors, Q, A, r, b)
+    return (out[0], None) if len(out) == 1 else out

@@ -35,6 +35,18 @@ class BoxQPSolution:
     #: residual checks, oldest first (config.residual_trace = K > 0); rows
     #: never written hold iteration -1.  None when off.
     residual_trace: Optional[torch.Tensor] = None
+    #: (n_batch,) bool — the polished point was accepted for this element
+    #: (config.polish); None when polish is off.  The JAX package does not
+    #: return this mask.
+    polished: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class EqQPSolution:
+    """Solution of an equality-constrained (or unconstrained) QP."""
+
+    x: torch.Tensor
+    nus: Optional[torch.Tensor]
 
 
 def as_vector(v, name="input"):

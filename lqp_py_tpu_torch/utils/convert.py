@@ -42,22 +42,16 @@ def problem_from_numpy(Q, p, A=None, b=None, lb=None, ub=None, *,
 
 
 def _factors_from_numpy(f: Mapping, device) -> KKTFactors:
-    if f.get("L") is not None:
-        raise ValueError("KKT factors carry L: only inverse-mode factors "
-                         "are ported")
-    return KKTFactors(Hinv=_t(f["Hinv"], device), W=_t(f.get("W"), device),
-                      Sinv=_t(f.get("Sinv"), device),
-                      WS=_t(f.get("WS"), device), P=_t(f.get("P"), device))
+    return KKTFactors(**{k: _t(f.get(k), device) for k in (
+        "Hinv", "W", "Sinv", "WS", "P", "L")})
 
 
 def prepared_from_numpy(d: Mapping, device=CUDA) -> BoxQPPrepared:
     """A ``BoxQPPrepared`` from the fields of one (``H``, ``As``, ``bs``,
-    ``lbs``, ``ubs``, ``D``, ``E``, ``rho0``, and ``factors`` as a mapping
-    of ``KKTFactors`` fields; a ``mode`` other than 'inverse' raises)."""
-    if d.get("mode", "inverse") != "inverse":
-        raise ValueError(f"prepared with kkt_solver={d['mode']!r}; only "
-                         f"'inverse' is ported")
-    return BoxQPPrepared(
+    ``lbs``, ``ubs``, ``D``, ``E``, ``rho0``, ``mode`` ('inverse' if
+    absent), and ``factors`` as a mapping of ``KKTFactors`` fields: ``L``
+    in Cholesky mode)."""
+    return BoxQPPrepared(mode=d.get("mode", "inverse"),
         H=_t(d["H"], device), As=_t(d.get("As"), device),
         bs=_t(d.get("bs"), device), lbs=_t(d["lbs"], device),
         ubs=_t(d["ubs"], device), D=_t(d["D"], device),
@@ -67,7 +61,9 @@ def prepared_from_numpy(d: Mapping, device=CUDA) -> BoxQPPrepared:
 
 def solution_from_numpy(d: Mapping, device=CUDA) -> BoxQPSolution:
     """A ``BoxQPSolution`` from the fields of one (``iterations`` becomes a
-    Python int)."""
+    Python int).  A polished solution's ``lams`` and ``nus`` are the
+    polished ones; ``polished``, the port's accepted mask, is carried
+    where given."""
     return BoxQPSolution(
         x=_t(d["x"], device), z=_t(d["z"], device), u=_t(d["u"], device),
         lams=_t(d["lams"], device), nus=_t(d.get("nus"), device),
@@ -76,7 +72,8 @@ def solution_from_numpy(d: Mapping, device=CUDA) -> BoxQPSolution:
         dual_residual=_t(d["dual_residual"], device),
         converged=_t(d["converged"], device),
         primal_infeasible=_t(d.get("primal_infeasible"), device),
-        residual_trace=_t(d.get("residual_trace"), device))
+        residual_trace=_t(d.get("residual_trace"), device),
+        polished=_t(d.get("polished"), device))
 
 
 def linear_qp_from_numpy(params, device=CUDA,

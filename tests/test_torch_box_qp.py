@@ -287,20 +287,3 @@ def test_generate_hard_qp_structure():
                zip((Q, p, A, b, lb, ub), generate_hard_qp_t(n, B, seed=4,
                                                          device="cpu")))
     assert not torch.equal(Q, generate_hard_qp_t(n, B, seed=5, device="cpu").Q)
-
-
-@pytest.mark.parametrize("cfg", [
-    dict(polish=True), dict(acceleration=3), dict(kkt_solver="cholesky"),
-], ids=["polish", "acceleration", "cholesky"])
-def test_unported_options_raise(cfg):
-    Q, p, A, b, lb, ub = problem_from_numpy(
-        *_np(create_qp_data(10, 2, dtype=jnp.float64), np.float64),
-        device="cpu")
-    config = T.BoxQPConfig(**cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.solve_box_qp(Q, p, A, b, lb, ub, config=config)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.prepare_box_qp(Q, A, b, lb, ub, config=config)
-    prep = T.prepare_box_qp(Q, A, b, lb, ub)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.solve_box_qp_prepared(prep, p, config=config)

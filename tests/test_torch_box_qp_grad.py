@@ -279,8 +279,6 @@ def test_unwanted_outer_products_are_not_built(mode, monkeypatch):
 
 def test_unroll_and_unknown_backward_raise():
     d = problem_from_numpy(*_data(6, 2, seed=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.boxqp(*d, config=T.BoxQPConfig(unroll=True))
     p = d.p.clone().requires_grad_(True)
     x = T.boxqp(d.Q, p, d.A, d.b, d.lb, d.ub,
                 config=T.BoxQPConfig(backward="nope"))

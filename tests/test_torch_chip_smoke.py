@@ -59,6 +59,9 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
                         ("device_count", lambda: 1),
                         ("synchronize", lambda *a: None),
                         ("_sleep", lambda cycles: None),
+                        ("reset_peak_memory_stats", lambda *a: None),
+                        ("memory_allocated", lambda *a: 0),
+                        ("max_memory_allocated", lambda *a: 1),
                         ("Event", _HostEvent)):
         monkeypatch.setattr(torch.cuda, name, value)
     monkeypatch.setattr(cs, "subprocess", types.SimpleNamespace(
@@ -103,8 +106,16 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
             "local_bytes"} <= set(kernels[1])
     assert {"turns_vs_recursion", "err_vs_f64", "plain_err_vs_f64", "regs",
             "local_bytes"} <= set(kernels[2])
+    # The leaf counted on the paths of phases 12-15: the unrolled forward,
+    # the polish (one factorization more than unpolished), none in the
+    # Cholesky mode, the Anderson solve's factorizations.
+    leaf = kernels[0]
+    assert leaf["launches_unrolled"] == 2 and leaf["launches_cholesky"] == 0
+    assert leaf["launches_polish"] >= 4 and leaf["launches_polish"] % 2 == 0
+    assert leaf["launches_anderson"] >= 2
+    assert kernels[1]["launches_big_batch"] == 1
     phases = {line.split()[1] for line in lines if line.startswith("phase")}
-    assert phases == {str(i) for i in range(1, 12)}
+    assert phases == {str(i) for i in range(1, 16)}
 
 
 def test_chip_smoke_without_cuda_fails_before_any_result(tmp_path):

@@ -271,3 +271,69 @@ def test_fixed_point_backward_leaf_launches(cuda):
                            (gQ, layer[0], 1e-3), (gp, layer[1], 1e-3)):
         err = (card.cpu() - cpu).abs().max() / cpu.abs().max()
         assert err <= tol, (tuple(cpu.shape), tol, err.item())
+
+
+@pytest.mark.parametrize("n", [8, 33])
+def test_gemv_kernel_above_the_grid_batch_limit(cuda, n):
+    """B = 65536 is one more than the grid's y limit: the launch runs in
+    chunks and still matches the plain version, frozen rows bitwise.
+    n = 33 takes the scalar path."""
+    B = 65536
+    P, r, x_prev = _gemv_inputs(B, n, cuda, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    order = torch.randperm(B, generator=g, device=cuda)
+    for n_conv in (0, B // 3, B):
+        conv = torch.zeros(B, dtype=torch.bool, device=cuda)
+        conv[order[:n_conv]] = True
+        _check_gemv(P, r, x_prev, conv)
+
+
+def _problem(n, B, seed, device):
+    return [t.to(device) for t in create_qp_data(n, B, seed=seed,
+                                                 device="cpu")]
+
+
+def test_unrolled_gradients_on_cuda_match_cpu(cuda):
+    """boxqp(unroll=True) at n=200: x and the gradients with respect to Q
+    and p on the card against the same call on the CPU; the forward's one
+    factorization launches the leaf twice (n=200 pads to 256), the
+    backward none."""
+    cfg = BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False,
+                      unroll=True, unroll_iters=60, adaptive_rho=False)
+    out = {}
+    for dev in ("cpu", cuda):
+        Q, p, A, b, lb, ub = _problem(200, 4, 5, dev)
+        Q.requires_grad_(True)
+        p.requires_grad_(True)
+        before = sk.LAUNCHES
+        x = boxqp(Q, p, A, b, lb, ub, config=cfg)
+        fwd = sk.LAUNCHES - before
+        gQ, gp = torch.autograd.grad(x.square().sum(), (Q, p))
+        out[str(dev)] = (x.detach().cpu(), gQ.cpu(), gp.cpu(), fwd,
+                         sk.LAUNCHES - before - fwd)
+    (xc, gQc, gpc, _, _), (xg, gQg, gpg, fwd, bwd) = out["cpu"], out["cuda"]
+    assert (fwd, bwd) == (2, 0)
+    assert (xg - xc).abs().max() <= 1e-4
+    for g_, c in ((gQg, gQc), (gpg, gpc)):
+        assert (g_ - c).norm() <= 1e-3 * c.norm()
+
+
+@pytest.mark.parametrize("cfg", [dict(polish=True),
+                                 dict(kkt_solver="cholesky"),
+                                 dict(acceleration=10)],
+                         ids=["polish", "cholesky", "anderson"])
+def test_solve_options_on_cuda_match_cpu(cuda, cfg):
+    data = create_qp_data(200, 8, seed=6, device="cpu")
+    config = BoxQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False, **cfg)
+    cpu = solve_box_qp(*data, config=config)
+    before = sk.LAUNCHES
+    gpu = solve_box_qp(*(t.to(cuda) for t in data), config=config)
+    leaves = sk.LAUNCHES - before
+    if cfg.get("kkt_solver") == "cholesky":
+        assert leaves == 0
+    else:
+        assert leaves >= 2 and leaves % 2 == 0
+    assert bool(gpu.converged.all()) and bool(cpu.converged.all())
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4
+    if cfg.get("polish"):
+        assert torch.equal(gpu.polished.cpu(), cpu.polished)

@@ -85,7 +85,10 @@ def test_import_leaves_jax_out():
     assert {"lqp_py_tpu_torch.models.box_qp_grad",
             "lqp_py_tpu_torch.models.layers", "lqp_py_tpu_torch.models.train",
             "lqp_py_tpu_torch.models._stateful", "lqp_py_tpu_torch.nn",
-            "lqp_py_tpu_torch.ops.kernels.block_inverse"} <= set(PORT_MODULES)
+            "lqp_py_tpu_torch.ops.kernels.block_inverse",
+            "lqp_py_tpu_torch.models._polish", "lqp_py_tpu_torch.models.eqcon",
+            "lqp_py_tpu_torch.models.uncon",
+            "lqp_py_tpu_torch.ops.anderson"} <= set(PORT_MODULES)
     code = ("import sys, importlib\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -94,6 +97,25 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("name", [
+    "solve_box_qp_unrolled", "EqQPSolution", "qp_eqcon", "solve_qp_eqcon",
+    "qp_uncon", "solve_qp_uncon", "solve_box_qp", "prepare_box_qp",
+    "solve_box_qp_prepared", "boxqp", "BoxQPLayer", "BoxQP", "BoxQPConfig",
+    "box_qp_control", "BoxQPSolution"])
+def test_exports_the_jax_package_names_it_ports(name):
+    import lqp_py_tpu
+    import lqp_py_tpu_torch
+    assert name in lqp_py_tpu.__all__ and name in lqp_py_tpu_torch.__all__
+    assert callable(getattr(lqp_py_tpu_torch, name))
+
+
+def test_eq_solution_fields_match_jax():
+    from lqp_py_tpu import types as jtypes
+    from lqp_py_tpu_torch import EqQPSolution
+    assert ([f.name for f in dataclasses.fields(EqQPSolution)]
+            == [f.name for f in dataclasses.fields(jtypes.EqQPSolution)])
 
 
 def test_sweep_wrapper_takes_plain_version_on_cpu():
