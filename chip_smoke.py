@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's box-QP paths once on one CUDA card.
+"""Drive the PyTorch port's QP solver paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -35,10 +35,19 @@ the polish and the Cholesky KKT mode on phase 5's requests against the
 float64 reference (the Cholesky mode launches no leaf); phase 14 Anderson
 acceleration (window 10) on the straggler batch against its plain solve,
 with the time of the m x m Gram inverse; phase 15 the equality-constrained
-and unconstrained solvers' forward+backward against float64 runs.  Every
-phase raises on failure.  The line before the last lists each kernel with its launches on
-its paths, its error against the plain version, its time beside the plain
-version's, its bound and a library yardstick; the last line is
+and unconstrained solvers' forward+backward against float64 runs.  Phases
+16-18 drive Experiment 1's interior-point columns (OptNetConfig(tol 1e-5,
+max_iters=30, symmetrize=False), polish on): phase 16 the box IP on phase
+5's requests against the float64 answer, its forward+backward against a
+float64 backward, and the leaf on the last iteration's IP operator (a
+diagonal spanning ~1e8) against a float64 inverse beside the plain leaf;
+phase 17 OptNet with the box as G = [-I; I] (condensed factorization) the
+same way; phase 18 OptNet on general inequalities (ni=500 < n: Schur
+factorization) gated on relative KKT residuals and against the condensed
+factorization in float64.  Every phase raises on failure.  The line
+before the last lists each kernel with its launches on its paths, its
+error against the plain version, its time beside the plain version's, its
+bound and a library yardstick; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero before
 printing any result.
 """
@@ -57,6 +66,7 @@ N, B, TOL = 1000, 128, 1e-5
 LEAF = 128
 N_HARD = 8          # stragglers in the phase-8 batch
 N_PAD = 1024        # n=1000 padded to the 128 and to the 256 alignment
+N_INEQ = 500        # general inequality rows of phase 18 (ni < n: Schur)
 B_BIG = 65536       # the GEMV's batch above the grid's y limit (phase 7)
 AA_WINDOW = 10      # experiments/experiment_aa.py's first window (phase 14)
 # Phase 12's gate on max|x_unrolled - x_fixed_point|: five times the
@@ -118,11 +128,15 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "check needs an NVIDIA GPU")
-    from lqp_py_tpu_torch import (BoxQPConfig, boxqp, prepare_box_qp,
-                                  qp_eqcon, qp_uncon, solve_box_qp,
-                                  solve_box_qp_prepared, solve_qp_eqcon,
+    from lqp_py_tpu_torch import (BoxQPConfig, OptNetConfig, boxqp,
+                                  boxqp_ip, prepare_box_qp, qp_eqcon,
+                                  qp_optnet, qp_uncon, solve_box_qp,
+                                  solve_box_qp_ip, solve_box_qp_prepared,
+                                  solve_qp_eqcon, solve_qp_optnet,
                                   solve_qp_uncon)
+    from lqp_py_tpu_torch.models import box_ip as bip
     from lqp_py_tpu_torch.models import box_qp_grad as grads
+    from lqp_py_tpu_torch.models import optnet as onet
     from lqp_py_tpu_torch.models import layers
     from lqp_py_tpu_torch.models import train
     from lqp_py_tpu_torch.ops import linalg as lin
@@ -927,7 +941,7 @@ def main():
           f"{plain13.iterations}); 0 leaf launches; max|x - x_f64| "
           f"{dxc13:.3e} (<= 1e-3); request {chol13_ms:.2f} ms (inverse "
           f"mode {plain13_ms:.2f})")
-    del pol13, plain13, chol13, data0, direct0, x64_5
+    del pol13, plain13, chol13, direct0
 
     # 14. Anderson acceleration (window 10) on the straggler batch,
     # lock-step, against phase 8's plain lock-step solve.
@@ -1034,6 +1048,295 @@ def main():
           f"n={N}): " + "; ".join(lines15))
     del data15, Q15, p15, A15, b15
 
+    # 16-18: Experiment 1's interior-point columns
+    # (experiments/experiment_1.py:230-256: OptNetConfig(tol, max_iters=30,
+    # symmetrize=False), gradients with respect to Q and p).
+    cfg_ip = OptNetConfig(tol=TOL, max_iters=30, symmetrize=False)
+    leaves_n = N_PAD // LEAF
+
+    def rel_max(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max()).item()
+
+    def ip_fwd_bwd(layer, Q, p, *rest):
+        """x, dQ, dp of sum(w10 * layer(Q, p, ...)), wall ms and the peak
+        memory above what was allocated before."""
+        Qg, pg = Q.clone().requires_grad_(True), p.clone().requires_grad_(True)
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = layer(Qg, pg, *rest, config=cfg_ip)
+        gQ, gp = torch.autograd.grad((w10 * x).sum(), (Qg, pg))
+        torch.cuda.synchronize()
+        return (x.detach(), gQ, gp, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() - base_mem)
+
+    # 16. Box IP on phase 5's requests; the last iteration's diagonal is
+    # kept to rebuild its factored operator.
+    last_diag = []
+    factor_fn = bip._factor
+
+    def spy_factor(Q, A, diag, int_reg):
+        last_diag[:] = [diag]
+        return factor_fn(Q, A, diag, int_reg)
+
+    bip._factor = spy_factor
+    try:
+        sk.LAUNCHES = 0
+        bip16, ms16 = _wall_ms(lambda: solve_box_qp_ip(*data0, config=cfg_ip))
+        launches16 = sk.LAUNCHES
+    finally:
+        bip._factor = factor_fn
+    it16, conv16 = bip16.iterations, int(bip16.converged.sum())
+    want16 = leaves_n * (1 + it16 + 2)     # init, iterations, polish rounds
+    _check(launches16 == want16, f"box IP: {launches16} leaf launches, "
+           f"expected {want16} for {it16} iterations")
+    _check(bool(torch.isfinite(bip16.x).all()), "box IP: x not finite")
+    # Within 1e-3 of float64, unless the polish was rejected: the
+    # reference's acceptance test reads |Ax - b| in float32, whose rounding
+    # at n=1000 (~3e-5) reaches its threshold tol (1 + |bounds|), so a
+    # correct polish is now and then rejected and the element keeps its
+    # interior-point x, bitwise the unpolished solve's (the JAX package
+    # does the same; ROADMAP Queue 3).  Those stay within 1e-2.
+    raw16 = solve_box_qp_ip(*data0, config=dataclasses.replace(
+        cfg_ip, polish=False)).x
+    kept16 = (bip16.x == raw16).all(dim=-1)
+    dev16 = (bip16.x.double() - x64_5).abs().amax(dim=-1)
+    dx16 = dev16.max().item()
+    _check(bool(((dev16 <= 1e-3) | kept16).all()) and dx16 <= 1e-2,
+           f"box IP: max|x - x_f64| = {dx16:.3e}, "
+           f"{int(((dev16 > 1e-3) & ~kept16).sum())} elements beyond 1e-3 "
+           f"with an accepted polish")
+    ms16w = [_wall_ms(lambda: solve_box_qp_ip(*data0, config=cfg_ip))[1]
+             for _ in range(3)]
+    # Where a request's time goes: 1 + iterations + 2 factorizations of
+    # H = Q + diag(d) + int_reg I with their Schur pieces.
+    with highest_matmul_precision():
+        fact16_ms = _event_ms(lambda: bip._factor(
+            data0.Q, data0.A, last_diag[0], cfg_ip.int_reg), 3)
+    share16 = (1 + it16 + 2) * fact16_ms / min(ms16w)
+    x16, gQ16, gp16, fb16_ms, peak16 = ip_fwd_bwd(boxqp_ip, *data0)
+    dlayer16 = (x16 - bip16.x).abs().max().item()
+    _check(dlayer16 <= 1e-6, f"box IP: layer x vs solve x {dlayer16:.3e}")
+    res16 = (bip16.x, bip16.lams, bip16.nus, data0.Q, data0.A, data0.lb,
+             data0.ub)
+    g32 = grads.box_qp_grad_kkt(w10, *res16)
+    g64 = grads.box_qp_grad_kkt(w10.double(), *(t.double() for t in res16))
+    wire16 = max(rel_max(gQ16, g32[0]), rel_max(gp16, g32[1]))
+    rel16 = {"dQ": rel_max(g32[0], g64[0]), "dp": rel_max(g32[1], g64[1])}
+    del g32, g64, gQ16, gp16
+    _check(wire16 <= 1e-5, f"box IP: layer vs direct backward {wire16:.3e}")
+    _check(all(v <= 1e-4 for v in rel16.values()),
+           f"box IP: f32 vs f64 backward, relative {rel16}")
+    # The leaf on the interior-point operator: the last iteration's
+    # H = Q + diag(d_lo + d_hi) + int_reg I, inverted by spd_inverse_fast
+    # with the kernel and with the plain leaf, against float64.
+    H16 = data0.Q.clone()
+    H16.diagonal(dim1=-2, dim2=-1).add_(last_diag[0] + cfg_ip.int_reg)
+    dH = H16.diagonal(dim1=-2, dim2=-1)
+    Hs16, deq = lin._equilibrate(H16)
+    ds16 = Hs16.diagonal(dim1=-2, dim2=-1)
+    off16 = (Hs16 - torch.diag_embed(ds16)).abs().max().item()
+    with highest_matmul_precision():
+        Hk16 = lin.spd_inverse_fast(H16)
+        Hp16 = lin._schur_inverse(lin._pad_to_leaf(Hs16),
+                                  leaf=sk.sweep_spd_inverse_ref)[:, :N, :N]
+        Hp16 = Hp16 * deq[..., :, None] * deq[..., None, :]
+    inv16 = torch.cholesky_inverse(torch.linalg.cholesky(H16.double()))
+    err16_k = (Hk16.double() - inv16).abs().max().item()
+    err16_p = (Hp16.double() - inv16).abs().max().item()
+    dd = deq.double()
+    # The same errors on the equilibrated operator's inverse (every entry
+    # on one scale).
+    eq16_k = ((Hk16.double() - inv16) / dd[..., :, None]
+              / dd[..., None, :]).abs().max().item()
+    eq16_p = ((Hp16.double() - inv16) / dd[..., :, None]
+              / dd[..., None, :]).abs().max().item()
+    del H16, Hs16, Hk16, Hp16, inv16, dd
+    _check(err16_k <= 2 * err16_p, f"leaf on the box-IP operator: kernel "
+           f"error {err16_k:.3e} against plain {err16_p:.3e}")
+    print(f"phase 16 box IP (Experiment 1's BoxIP, B={B}, n={N}, f32, tol "
+          f"{TOL:g}, max_iters 30, polish): {conv16}/{B} converged in "
+          f"{it16} iterations; {launches16} leaf launches (= {leaves_n} x "
+          f"(1 init + {it16} iterations + 2 polish rounds)); max|x - x_f64| "
+          f"{dx16:.3e}, {int((dev16 <= 1e-3).sum())}/{B} within 1e-3, "
+          f"{int(kept16.sum())} kept the interior-point x (polish "
+          f"rejected; within 1e-3 or rejected, and <= 1e-2); request ms "
+          f"first {ms16:.2f}, warm "
+          f"[{', '.join(f'{v:.2f}' for v in ms16w)}], one factorization "
+          f"{fact16_ms:.2f} ms, x {1 + it16 + 2} = {share16:.3f} of the "
+          f"fastest warm request; forward+backward "
+          f"(d/dQ, d/dp of sum(w x)) {fb16_ms:.2f} ms, peak memory above "
+          f"the inputs {peak16 / 2**30:.3f} GiB; layer vs direct backward "
+          f"{wire16:.3e} (<= 1e-5); f32 vs f64 backward relative max|ddQ| "
+          f"{rel16['dQ']:.3e}, max|ddp| {rel16['dp']:.3e} (<= 1e-4); last "
+          f"iteration's H: diagonal [{dH.min().item():.3e}, "
+          f"{dH.max().item():.3e}], after equilibration "
+          f"[{ds16.min().item():.6f}, {ds16.max().item():.6f}] with "
+          f"max|offdiag| {off16:.3e}; |Hinv - inv_f64|max kernel "
+          f"{err16_k:.3e}, plain leaf {err16_p:.3e} (ratio "
+          f"{err16_k / err16_p:.3f} <= 2); equilibrated kernel {eq16_k:.3e}, "
+          f"plain {eq16_p:.3e}")
+    del bip16, raw16, x16, dH, ds16, deq, last_diag
+
+    # 17. OptNet IP on the same requests, the box as G = [-I; I] (the
+    # condensed factorization: ni = 2n > n).
+    G17, h17 = data0.with_G_h()
+    args17 = (data0.Q, data0.p, data0.A, data0.b, G17, h17)
+    _check(onet._use_condensed(cfg_ip, N, 2 * N), "OptNet: 'auto' did not "
+           "pick the condensed factorization for ni = 2n")
+    sk.LAUNCHES = 0
+    on17, ms17 = _wall_ms(lambda: solve_qp_optnet(*args17, config=cfg_ip))
+    launches17 = sk.LAUNCHES
+    it17, conv17 = on17.iterations, int(on17.converged.sum())
+    want17 = leaves_n * (1 + it17 + 2)
+    _check(launches17 == want17, f"OptNet condensed: {launches17} leaf "
+           f"launches, expected {want17} for {it17} iterations")
+    _check(bool(torch.isfinite(on17.x).all()), "OptNet: x not finite")
+    dev17 = (on17.x.double() - x64_5).abs().amax(dim=-1)
+    dx17 = dev17.max().item()
+    kept17 = (on17.x == solve_qp_optnet(*args17, config=dataclasses.replace(
+        cfg_ip, polish=False)).x).all(dim=-1)
+    # 1e-2: the reference's polish misses elements at this size (ROADMAP
+    # Queue 3); the count within 1e-3 is printed.
+    _check(dx17 <= 1e-2, f"OptNet: max|x - x_f64| = {dx17:.3e}")
+    ms17w = [_wall_ms(lambda: solve_qp_optnet(*args17, config=cfg_ip))[1]
+             for _ in range(3)]
+    kkt17 = kkt_residuals(*data0, on17.x, on17.lams, on17.nus)
+    d17 = torch.ones((B, 2 * N), device=dev)
+    with highest_matmul_precision():
+        prod17_ms = _event_ms(lambda: data0.Q + G17.mT @ (
+            d17[..., :, None] * G17), 3)
+        fact17_ms = _event_ms(lambda: onet.ip_factor_condensed(
+            data0.Q, data0.A, G17, d17, cfg_ip.int_reg), 3)
+    del d17
+    nfact17 = 1 + it17 + 2
+    x17, gQ17, gp17, fb17_ms, peak17 = ip_fwd_bwd(qp_optnet, *args17)
+    dlayer17 = (x17 - on17.x).abs().max().item()
+    _check(dlayer17 <= 1e-6, f"OptNet: layer x vs solve x {dlayer17:.3e}")
+    res17 = (on17.x, on17.lams, on17.slacks, on17.nus)
+    g32 = onet.optnet_grads(w10, *res17, data0.Q, data0.A, G17, None,
+                            cfg_ip.int_reg, want_dG=False)
+    d64 = type(data0)(*(t.double() for t in data0))
+    g64 = onet.optnet_grads(w10.double(), *(t.double() for t in res17),
+                            d64.Q, d64.A, d64.with_G_h()[0], None,
+                            cfg_ip.int_reg, want_dG=False)
+    wire17 = max(rel_max(gQ17, g32[0]), rel_max(gp17, g32[1]))
+    rel17 = {"dQ": rel_max(g32[0], g64[0]), "dp": rel_max(g32[1], g64[1])}
+    del g32, g64, d64, gQ17, gp17
+    _check(wire17 <= 1e-5, f"OptNet: layer vs direct backward {wire17:.3e}")
+    _check(all(v <= 1e-4 for v in rel17.values()),
+           f"OptNet: f32 vs f64 backward, relative {rel17}")
+    print(f"phase 17 OptNet IP, condensed (Experiment 1's OptNet_IP, G = "
+          f"[-I; I] ({B},{2 * N},{N}), f32, tol {TOL:g}, max_iters 30, "
+          f"polish): 'auto' picks condensed; {conv17}/{B} converged in "
+          f"{it17} iterations; {launches17} leaf launches (= {leaves_n} x "
+          f"(1 + {it17} + 2)); max|x - x_f64| {dx17:.3e} (<= 1e-2), "
+          f"{int((dev17 <= 1e-3).sum())}/{B} elements within 1e-3, "
+          f"{int(kept17.sum())} kept the interior-point x (polish "
+          f"rejected), {int(((dev17 > 1e-3) & ~kept17).sum())} beyond 1e-3 "
+          f"with an accepted polish; "
+          f"kkt_residuals max " + ", ".join(
+              f"{k} {v.max().item():.3e}" for k, v in kkt17.items())
+          + f"; request ms first {ms17:.2f}, warm "
+          f"[{', '.join(f'{v:.2f}' for v in ms17w)}], one condensed "
+          f"factorization {fact17_ms:.2f} ms of which Q + G'(d G) "
+          f"{prod17_ms:.2f} ms, x {nfact17} = "
+          f"{nfact17 * fact17_ms / min(ms17w):.3f} of the fastest warm "
+          f"request (the product {nfact17 * prod17_ms / min(ms17w):.3f}); "
+          f"forward+backward "
+          f"(G, h without grad) {fb17_ms:.2f} ms, peak memory above the "
+          f"inputs {peak17 / 2**30:.3f} GiB (a dG would be "
+          f"{4 * B * 2 * N * N / 2**30:.3f} GiB); layer vs direct backward "
+          f"{wire17:.3e} (<= 1e-5); f32 vs f64 backward relative max|ddQ| "
+          f"{rel17['dQ']:.3e}, max|ddp| {rel17['dp']:.3e} (<= 1e-4)")
+    del on17, x17, G17, h17, args17, data0, x64_5
+
+    # 18. OptNet IP on general inequalities (ni < n: the Schur
+    # factorization), random around a strictly feasible point as
+    # tests/test_optnet.py:48-78 builds them.
+    g18 = torch.Generator(device=dev).manual_seed(18)
+    kw18 = dict(device=dev, dtype=torch.float32)
+    L18 = torch.randn((B, 2 * N, N), generator=g18, **kw18)
+    with highest_matmul_precision():
+        Q18 = L18.mT @ L18 / (2 * N) + 0.1 * torch.eye(N, **kw18)
+        del L18
+        p18 = torch.randn((B, N), generator=g18, **kw18)
+        A18 = torch.randn((B, 1, N), generator=g18, **kw18)
+        x0 = torch.randn((B, N), generator=g18, **kw18)
+        b18 = (A18 @ x0[..., None])[..., 0]
+        G18 = torch.randn((B, N_INEQ, N), generator=g18, **kw18)
+        h18 = ((G18 @ x0[..., None])[..., 0] + 0.5
+               + torch.rand((B, N_INEQ), generator=g18, **kw18))
+    args18 = (Q18, p18, A18, b18, G18, h18)
+    _check(not onet._use_condensed(cfg_ip, N, N_INEQ), "OptNet: 'auto' did "
+           "not pick the Schur factorization for ni < n")
+    sk.LAUNCHES = 0
+    on18, ms18 = _wall_ms(lambda: solve_qp_optnet(*args18, config=cfg_ip))
+    launches18 = sk.LAUNCHES
+    it18, conv18 = on18.iterations, int(on18.converged.sum())
+    # Q^-1 once, the ni x ni block at init and per iteration (S11 is 1 x 1:
+    # no leaf), the n x n polish operator per round.
+    leaves_ni = -(-N_INEQ // LEAF)
+    want18 = leaves_n + leaves_ni * (1 + it18) + 2 * leaves_n
+    _check(launches18 == want18, f"OptNet Schur: {launches18} leaf "
+           f"launches, expected {want18} for {it18} iterations")
+    ms18w = [_wall_ms(lambda: solve_qp_optnet(*args18, config=cfg_ip))[1]
+             for _ in range(3)]
+    with highest_matmul_precision():
+        pre18_ms = _event_ms(lambda: onet.ip_pre_factor(Q18, A18, G18), 3)
+        f18 = onet.ip_pre_factor(Q18, A18, G18)
+        d18 = torch.ones((B, N_INEQ), device=dev)
+        l22_ms = _event_ms(lambda: onet.ip_factor_L22(f18, d18,
+                                                      cfg_ip.int_reg), 3)
+    del f18, d18
+    with highest_matmul_precision():
+        x18, lam18, s18 = on18.x, on18.lams, on18.slacks
+        Qx = (Q18 @ x18[..., None])[..., 0]
+        Gl = (G18.mT @ lam18[..., None])[..., 0]
+        An = (A18.mT @ on18.nus[..., None])[..., 0]
+        Ax = (A18 @ x18[..., None])[..., 0]
+        Gx = (G18 @ x18[..., None])[..., 0]
+    scale_in = torch.maximum(Gx.abs().amax(dim=-1), h18.abs().amax(dim=-1))
+    kkt18 = {
+        "stationarity": ((Qx + p18 + Gl + An).abs().amax(dim=-1) / torch.stack(
+            [v.abs().amax(dim=-1) for v in (Qx, p18, Gl, An)]).amax(dim=0)),
+        "equality": ((Ax - b18).abs().amax(dim=-1) / torch.maximum(
+            Ax.abs().amax(dim=-1), b18.abs().amax(dim=-1))),
+        "inequality": torch.clamp(Gx - h18, min=0.0).amax(dim=-1) / scale_in,
+        "complementarity": ((lam18 * s18).amax(dim=-1)
+                            / (lam18.amax(dim=-1) * scale_in))}
+    kkt18 = {k: v.max().item() for k, v in kkt18.items()}
+    _check(all(v <= 1e-3 for v in kkt18.values()),
+           f"OptNet Schur: relative KKT residuals {kkt18}")
+    # The condensed factorization of the same data, in float64: in float32
+    # Q + G' diag(d) G of general rows outgrows float32 once d ~ 1e3 (the
+    # JAX package returns NaN there; ROADMAP Queue 3).
+    c18, ms18c = _wall_ms(lambda: solve_qp_optnet(
+        *(t.double() for t in args18),
+        config=dataclasses.replace(cfg_ip, factor="condensed")))
+    _check(bool(c18.converged.all()), f"OptNet condensed float64: "
+           f"{int(c18.converged.sum())}/{B} converged")
+    dx18 = (x18.double() - c18.x).abs().max().item()
+    _check(dx18 <= 1e-3, f"OptNet Schur f32 vs condensed f64: max|dx| "
+           f"{dx18:.3e}")
+    print(f"phase 18 OptNet IP, Schur (B={B}, n={N}, ni={N_INEQ}, m=1, "
+          f"f32, tol {TOL:g}, max_iters 30, polish): 'auto' picks Schur; "
+          f"{conv18}/{B} converged in {it18} iterations; {launches18} leaf "
+          f"launches (= {leaves_n} Q^-1 + {leaves_ni} x (1 + {it18}) + 2 x "
+          f"{leaves_n} polish); relative KKT residuals max " + ", ".join(
+              f"{k} {v:.3e}" for k, v in kkt18.items()) + " (<= 1e-3); "
+          f"request ms first {ms18:.2f}, warm "
+          f"[{', '.join(f'{v:.2f}' for v in ms18w)}], pre-factorization "
+          f"(Q^-1 and the Schur blocks) {pre18_ms:.2f} ms, one "
+          f"{N_INEQ}x{N_INEQ} refactorization {l22_ms:.2f} ms, x {1 + it18} "
+          f"= {(1 + it18) * l22_ms / min(ms18w):.3f} of the fastest warm "
+          f"request; condensed float64 "
+          f"{c18.iterations} iterations, {ms18c:.2f} ms, max|x_schur_f32 - "
+          f"x_condensed_f64| {dx18:.3e} (<= 1e-3)")
+    del args18, Q18, p18, A18, b18, G18, h18, on18, c18
+
     print(json.dumps({"kernels": [{
         "name": "sweep_spd_inverse", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/sweep_spd_inverse.cu",
@@ -1042,6 +1345,9 @@ def main():
         "launches_fwd_bwd": launches10, "launches_train": launches11,
         "launches_unrolled": launches12, "launches_polish": pol_leaves13,
         "launches_cholesky": chol_leaves13, "launches_anderson": aa_leaves14,
+        "launches_box_ip": launches16, "launches_optnet": launches17,
+        "launches_optnet_schur": launches18, "err_ip_vs_f64": err16_k,
+        "plain_err_ip_vs_f64": err16_p,
         "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
         "plain_ms": plain_ms, "bound_ms": leaf_bound[0],
         "bound_by": leaf_bound[1], "library_ms": leaf_lib_ms,

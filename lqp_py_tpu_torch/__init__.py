@@ -9,17 +9,21 @@ Cholesky KKT mode; the unrolled solve (``solve_box_qp_unrolled``); the
 differentiable layer ``boxqp`` with its fixed-point, KKT and unrolled
 backward passes, ``BoxQPLayer`` and the stateful ``BoxQP``; the
 equality-constrained and unconstrained solvers (``qp_eqcon``,
-``qp_uncon``); the ``nn.Module``s of ``lqp_py_tpu_torch.nn`` and the
-Experiment-2 trainer (``models/train.py``).  Its three kernels, the
-128x128 SWEEP leaf of the SPD inverse, the early-exit GEMV and the
-whole-matrix block-sweep inverse (``ops/kernels/block_inverse.py``, an
-entry point of its own that no solver calls), are CUDA C++ for Hopper
-(``csrc/``), built with nvcc on first use; on a CPU tensor their plain
-PyTorch versions run instead.
+``qp_uncon``); the interior-point solvers, box-structured
+(``solve_box_qp_ip``, ``boxqp_ip``) and general (``solve_qp_optnet``,
+``qp_optnet``, ``OptNetLayer``; Schur and condensed factorizations, polish
+and the KKT implicit backward); the ``nn.Module``s of
+``lqp_py_tpu_torch.nn`` and the Experiment-2 trainer
+(``models/train.py``).  Its three kernels, the 128x128 SWEEP leaf of the
+SPD inverse, the early-exit GEMV and the whole-matrix block-sweep inverse
+(``ops/kernels/block_inverse.py``, an entry point of its own that no
+solver calls), are CUDA C++ for Hopper (``csrc/``), built with nvcc on
+first use; on a CPU tensor their plain PyTorch versions run instead.
 """
 
-from lqp_py_tpu_torch.config import BoxQPConfig, box_qp_control
-from lqp_py_tpu_torch.types import BoxQPSolution, EqQPSolution
+from lqp_py_tpu_torch.config import (BoxQPConfig, OptNetConfig,
+                                     box_qp_control, optnet_control)
+from lqp_py_tpu_torch.types import BoxQPSolution, EqQPSolution, QPSolution
 from lqp_py_tpu_torch.models.box_qp import (
     BoxQPPrepared,
     prepare_box_qp,
@@ -30,6 +34,9 @@ from lqp_py_tpu_torch.models.box_qp import (
 from lqp_py_tpu_torch.models.layers import BoxQP, BoxQPLayer, boxqp
 from lqp_py_tpu_torch.models.eqcon import qp_eqcon, solve_qp_eqcon
 from lqp_py_tpu_torch.models.uncon import qp_uncon, solve_qp_uncon
+from lqp_py_tpu_torch.models.box_ip import boxqp_ip, solve_box_qp_ip
+from lqp_py_tpu_torch.models.optnet import (OptNetLayer, qp_optnet,
+                                            solve_qp_optnet)
 
 __all__ = [
     "BoxQPConfig", "box_qp_control", "BoxQPSolution", "EqQPSolution",
@@ -37,4 +44,6 @@ __all__ = [
     "prepare_box_qp", "solve_box_qp_prepared",
     "boxqp", "BoxQPLayer", "BoxQP",
     "qp_eqcon", "solve_qp_eqcon", "qp_uncon", "solve_qp_uncon",
+    "OptNetConfig", "optnet_control", "QPSolution", "solve_box_qp_ip",
+    "boxqp_ip", "solve_qp_optnet", "qp_optnet", "OptNetLayer",
 ]

@@ -1,13 +1,15 @@
 """Solver configuration, field for field the same as ``lqp_py_tpu.config``.
 
-``BoxQPConfig`` keeps the JAX package's field names, defaults and
-construction checks, so one configuration means the same solve in both
-packages (tests/test_torch_package.py holds the two together).  The
+``BoxQPConfig`` and ``OptNetConfig`` keep the JAX package's field names,
+defaults and construction checks, so one configuration means the same solve
+in both packages (tests/test_torch_package.py holds the two together).  The
 reasoning behind each default is documented on the JAX side
-(lqp_py_tpu/config.py).  Every field is ported: the forward solve (with
-``use_pallas_step``, ``polish``, ``acceleration`` and ``kkt_solver``), both
-implicit backward modes (``backward`` = 'fixed_point' or 'kkt',
-``backward_reg``) and the unrolled one (``unroll``, ``unroll_iters``).
+(lqp_py_tpu/config.py).  Every field of ``BoxQPConfig`` is ported: the
+forward solve (with ``use_pallas_step``, ``polish``, ``acceleration`` and
+``kkt_solver``), both implicit backward modes (``backward`` =
+'fixed_point' or 'kkt', ``backward_reg``) and the unrolled one (``unroll``,
+``unroll_iters``).  ``OptNetConfig`` drives both interior-point solvers
+(models/box_ip.py, models/optnet.py).
 """
 
 from __future__ import annotations
@@ -117,9 +119,39 @@ class BoxQPConfig:
         return max(it, 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class OptNetConfig:
+    """Configuration for the batched interior-point (OptNet-style) solvers."""
+
+    max_iters: int = 10
+    tol: float = 1e-3
+    #: Accepted for the JAX package's signature; the interior point tests
+    #: convergence every iteration.
+    check_solved: int = 1
+    verbose: bool = False
+    #: Stopping test across the batch: 'max' runs until every element
+    #: has converged, 'mean' until the batch-mean residual is below tol.
+    reduce: str = "max"
+    symmetrize: bool = True
+    int_reg: float = 1e-6
+    #: Per-iteration factorization of the general solver: 'schur' (the
+    #: ni x ni inequality Schur block), 'condensed' (the n x n
+    #: ``Q + G' diag(d) G``) or 'auto' (condensed iff n_ineq > n_x).
+    factor: str = "auto"
+    #: Iterative-refinement steps on each condensed KKT solve.
+    refine_steps: int = 0
+    #: Two-round active-set polish after the loop, accepted per element.
+    polish: bool = True
+
+
 def box_qp_control(**kwargs) -> BoxQPConfig:
     """Dict-style constructor mirroring the reference's ``box_qp_control``.
 
     Unknown keys raise immediately instead of being silently ignored.
     """
     return BoxQPConfig(**kwargs)
+
+
+def optnet_control(**kwargs) -> OptNetConfig:
+    """Dict-style constructor of an ``OptNetConfig``."""
+    return OptNetConfig(**kwargs)

@@ -1,0 +1,462 @@
+"""Batched primal-dual interior-point QP solver (counterpart of
+``lqp_py_tpu.models.optnet``):
+
+    x* = argmin_x 0.5 x'Qx + p'x   s.t.  Ax = b,  Gx <= h
+
+Mehrotra predictor-corrector steps with 0.999 ratio-test step lengths, a
+per-element relative stopping test, a two-round active-set polish and the
+KKT implicit backward that reuses the forward's factors.  Every fixed
+operator is a materialized inverse (``spd_inverse_fast``: SWEEP leaves in
+float32), so each KKT solve is a handful of batched GEMVs.  Two
+factorizations, chosen by constraint count (``OptNetConfig.factor``):
+
+- 'schur': precompute Q^-1 and the inequality-Schur blocks; per iteration
+  invert the ni x ni ``G Q^-1 G^T - T (G Q^-1 A^T)^T + diag(1/d)``;
+- 'condensed': eliminate (ds, dz) and per iteration invert the n x n
+  ``Q + G^T diag(d) G`` (the box G = [-I; I] has ni = 2n).
+
+The JAX package's ``lax.while_loop`` is a host loop with one device read
+per iteration.  Converged elements are frozen (step length 0), and the
+loop runs as many iterations as the JAX package's.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from lqp_py_tpu_torch.config import OptNetConfig
+from lqp_py_tpu_torch.models._polish import (al_lam_threshold,
+                                             gen_penalty_polish)
+from lqp_py_tpu_torch.models.box_qp_grad import _outer, _sym_outer
+from lqp_py_tpu_torch.models.eqcon import qp_eqcon, solve_qp_eqcon
+from lqp_py_tpu_torch.ops.linalg import _mv, _schur_pieces, spd_inverse_fast
+from lqp_py_tpu_torch.ops.precision import solver_precision
+from lqp_py_tpu_torch.types import QPSolution, as_vector, like_layout
+
+
+def _mtv(M, v):
+    return _mv(M.mT, v)
+
+
+def _inf_norm(v):
+    return v.abs().amax(dim=-1)
+
+
+def _d_cap(dtype) -> float:
+    # Near convergence z/s spans ~1/tol^2, which overflows a float32
+    # factorization; the clamp only saturates directions resolved far
+    # beyond the stopping tolerance.
+    return 1e8 if dtype == torch.float32 else 1e16
+
+
+class IPFactors(NamedTuple):
+    """Cached d-independent pieces of the Schur-mode KKT operator:
+
+      S = [[S11, S12], [S21, S22(d)]],  S11 = A Q^-1 A^T,
+      S21 = G Q^-1 A^T,  S22 = G Q^-1 G^T + diag(1/d)
+      Rt  = G Q^-1 G^T - S21 S11^-1 S12
+    """
+    Qinv: torch.Tensor              # Q^-1
+    S11inv: Optional[torch.Tensor]  # (A Q^-1 A^T)^-1, None without A
+    T: Optional[torch.Tensor]       # S21 S11^-1
+    Rt: torch.Tensor
+
+
+def ip_pre_factor(Q, A, G) -> IPFactors:
+    Qinv = spd_inverse_fast(Q)
+    R = G @ (Qinv @ G.mT)                                 # (B, ni, ni)
+    if A is None:
+        return IPFactors(Qinv=Qinv, S11inv=None, T=None, Rt=R)
+    invQ_At = Qinv @ A.mT                                 # (B, n, m)
+    S11inv = spd_inverse_fast(A @ invQ_At)
+    GQA = G @ invQ_At                                     # (B, ni, m)
+    T = GQA @ S11inv
+    return IPFactors(Qinv=Qinv, S11inv=S11inv, T=T, Rt=R - T @ GQA.mT)
+
+
+def ip_factor_L22(f: IPFactors, d, int_reg):
+    """The d-dependent refactorization: the inverse of
+    ``Rt + diag(1/d) + int_reg I``, applied as a GEMV."""
+    M = f.Rt.clone()
+    M.diagonal(dim1=-2, dim2=-1).add_(1.0 / d).add_(int_reg)
+    return spd_inverse_fast(M)
+
+
+def _schur_solve(f: IPFactors, Minv, H_eq, H_in):
+    """Solve S w = [H_eq; H_in] through the cached inverses."""
+    if f.S11inv is None:
+        return None, _mv(Minv, H_in)
+    w_in = _mv(Minv, H_in - _mv(f.T, H_eq))
+    return _mv(f.S11inv, H_eq) - _mtv(f.T, w_in), w_in
+
+
+def ip_solve_kkt(f: IPFactors, Minv, d, G, A, rx, rs, rz, ry):
+    """One KKT solve of the interior-point system in Schur mode."""
+    invQ_rx = _mv(f.Qinv, rx)
+    H_in = _mv(G, invQ_rx) + rs / d - rz
+    H_eq = None if A is None else _mv(A, invQ_rx) - ry
+    w_eq, w_in = _schur_solve(f, Minv, H_eq, H_in)
+    dz = -w_in
+    dy = None if w_eq is None else -w_eq
+    g1 = -rx - _mtv(G, dz)
+    if A is not None:
+        g1 = g1 - _mtv(A, dy)
+    return _mv(f.Qinv, g1), (-rs - dz) / d, dz, dy
+
+
+class CondensedFactors(NamedTuple):
+    """``Hinv = (Q + G^T diag(d) G + int_reg I)^-1``; ``W = Hinv A^T`` and
+    ``Sinv = (A W + int_reg I)^-1`` are None without equality
+    constraints."""
+    Hinv: torch.Tensor
+    W: Optional[torch.Tensor]
+    Sinv: Optional[torch.Tensor]
+
+
+def ip_factor_condensed(Q, A, G, d, int_reg) -> CondensedFactors:
+    """Per-iteration factorization of ``H(d) = Q + G^T diag(d) G``; d > 0
+    keeps H SPD."""
+    H = Q + G.mT @ (d[..., :, None] * G)
+    H.diagonal(dim1=-2, dim2=-1).add_(int_reg)
+    Hinv = spd_inverse_fast(H)
+    if A is None:
+        return CondensedFactors(Hinv=Hinv, W=None, Sinv=None)
+    W = Hinv @ A.mT                                       # (B, n, m)
+    return CondensedFactors(Hinv=Hinv, W=W, Sinv=_schur_pieces(A, W,
+                                                               int_reg))
+
+
+def ip_solve_condensed(fc: CondensedFactors, d, G, A, rx, rs, rz, ry,
+                       Hmv=None, refine: int = 0):
+    """Solve the Newton system
+
+        Q dx + G^T dz + A^T dy = -rx,   A dx = -ry,
+        G dx + ds = -rz,                d ds + dz = -rs
+
+    through the condensed factors: eliminating dz and ds gives
+    ``H(d) dx + A^T dy = -rx + G^T (rs - d rz)``.  ``refine`` > 0 applies
+    that many iterative-refinement steps ``dx += Hinv (rhs - H dx)`` with
+    the residual from the matrix-free product ``Hmv``."""
+    rhs1 = -rx + _mtv(G, rs - d * rz)
+    t = _mv(fc.Hinv, rhs1)
+    if A is None:
+        dx, dy, rhs_eff = t, None, rhs1
+    else:
+        dy = _mv(fc.Sinv, _mv(A, t) + ry)
+        dx = t - _mv(fc.W, dy)
+        rhs_eff = rhs1 - _mtv(A, dy)
+    for _ in range(refine):
+        dx = dx + _mv(fc.Hinv, rhs_eff - Hmv(dx))
+    ds = -rz - _mv(G, dx)
+    return dx, ds, -rs - d * ds, dy
+
+
+def _use_condensed(config, n, ni) -> bool:
+    factor = config.factor
+    if factor == "auto":
+        # Condensed costs ~2n^3 + 2n^2 ni per iteration, Schur ~2ni^3.
+        return ni > n
+    if factor not in ("condensed", "schur"):
+        raise ValueError(f"unknown factor mode {factor!r}")
+    return factor == "condensed"
+
+
+def _ratio_step(v, dv):
+    """Largest step with ``v + alpha dv >= 0``: min over the positive
+    entries of -v/dv (inf where there are none)."""
+    a = -v / dv
+    return torch.where(a > 0, a, torch.inf).amin(dim=-1)
+
+
+def _step_length(pairs):
+    """0.999 times the largest step in [0, 1] keeping every ``v + alpha
+    dv`` of ``pairs`` nonnegative, per element, as (B, 1)."""
+    alpha = functools.reduce(torch.minimum,
+                             (_ratio_step(v, dv) for v, dv in pairs))
+    return (0.999 * torch.clamp(alpha, max=1.0))[..., None]
+
+
+def _condensed_solver(Q, A, G, d, int_reg, refine):
+    fc = ip_factor_condensed(Q, A, G, d, int_reg)
+
+    def Hmv(v):
+        return _mv(Q, v) + _mtv(G, d * _mv(G, v)) + int_reg * v
+
+    return functools.partial(ip_solve_condensed, fc, d, G, A, Hmv=Hmv,
+                             refine=refine)
+
+
+class _IPState(NamedTuple):
+    x: torch.Tensor
+    s: torch.Tensor
+    z: torch.Tensor
+    y: Optional[torch.Tensor]
+    error: torch.Tensor          # () batch-reduced residual ('mean' exit)
+    primal: torch.Tensor         # (B,)
+    dual: torch.Tensor           # (B,)
+    converged: torch.Tensor      # (B,) bool
+
+
+def solve_qp_optnet(Q, p, A=None, b=None, G=None, h=None,
+                    config: OptNetConfig = OptNetConfig()) -> QPSolution:
+    """Forward interior-point solve.  Returns a QPSolution; with G None it
+    is the direct equality-constrained solve."""
+    return _solve_qp_optnet_full(Q, p, A, b, G, h, config)[0]
+
+
+@solver_precision
+def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
+    """The solve and, in Schur mode, its ``IPFactors`` (else None)."""
+    Q = torch.as_tensor(Q)
+    if config.symmetrize:
+        Q = 0.5 * (Q + Q.mT)
+    dtype = Q.dtype
+    p = as_vector(p, "p").to(dtype)
+    B, n = p.shape
+    kw = dict(dtype=dtype, device=p.device)
+
+    if G is None:
+        eq = solve_qp_eqcon(Q, p, A, b)
+        return QPSolution(
+            x=eq.x, lams=torch.zeros((B, 0), **kw),
+            slacks=torch.zeros((B, 0), **kw), nus=eq.nus, iterations=0,
+            primal_residual=torch.zeros((B,), **kw),
+            dual_residual=torch.zeros((B,), **kw),
+            converged=torch.ones((B,), dtype=torch.bool,
+                                 device=p.device)), None
+
+    G = torch.as_tensor(G).to(dtype)
+    h = as_vector(h, "h").to(dtype)
+    A = None if A is None else torch.as_tensor(A).to(dtype)
+    b = None if b is None else as_vector(b, "b").to(dtype)
+    ni = G.shape[-2]
+    int_reg = float(config.int_reg)
+    tol = float(config.tol)
+
+    if _use_condensed(config, n, ni):
+        f = None
+
+        def make_solver(d):
+            return _condensed_solver(Q, A, G, d, int_reg,
+                                     int(config.refine_steps))
+    else:
+        f = ip_pre_factor(Q, A, G)
+
+        def make_solver(d):
+            return functools.partial(ip_solve_kkt, f,
+                                     ip_factor_L22(f, d, int_reg), d, G, A)
+
+    # Init: one KKT solve at d = 1, then s and z shifted to >= 1.
+    x0, s0, z0, y0 = make_solver(torch.ones((B, ni), **kw))(
+        rx=p, rs=torch.zeros((B, ni), **kw), rz=-h,
+        ry=None if b is None else -b)
+    s0 = s0 + torch.clamp(1.0 - s0.amin(dim=-1), min=0.0)[..., None]
+    z0 = z0 + torch.clamp(1.0 - z0.amin(dim=-1), min=0.0)[..., None]
+    inf_b = torch.full((B,), torch.inf, **kw)
+    st = _IPState(x=x0, s=s0, z=z0, y=y0,
+                  error=torch.tensor(torch.inf, **kw), primal=inf_b,
+                  dual=inf_b, converged=torch.zeros((B,), dtype=torch.bool,
+                                                    device=p.device))
+
+    p_norm, h_norm = _inf_norm(p), _inf_norm(h)
+    b_norm = None if b is None else _inf_norm(b)
+    eps_abs = eps_rel = tol
+    d_cap = _d_cap(dtype)
+
+    def body(st: _IPState, it: int) -> _IPState:
+        Qx = _mv(Q, st.x)
+        Gtz = _mtv(G, st.z)
+        rx = Qx + Gtz + p
+        ry = Aty = None
+        if A is not None:
+            Aty = _mtv(A, st.y)
+            rx = rx + Aty
+            ry = _mv(A, st.x) - b
+        Gx = _mv(G, st.x)
+        rz = Gx + st.s - h
+        rs = st.z
+
+        # Per-element relative stopping test (the framework's tol
+        # semantics), with complementarity by the worst product relative
+        # to the dual magnitude.
+        mu = (st.s * st.z).sum(dim=-1) / ni
+        prim = _inf_norm(rz)
+        tolp_norm = torch.maximum(torch.maximum(_inf_norm(Gx),
+                                                _inf_norm(st.s)), h_norm)
+        if ry is not None:
+            prim = torch.maximum(prim, _inf_norm(ry))
+            tolp_norm = torch.maximum(
+                tolp_norm, torch.maximum(_inf_norm(ry + b), b_norm))
+        dual = _inf_norm(rx)
+        told_norm = torch.maximum(torch.maximum(_inf_norm(Qx),
+                                                _inf_norm(Gtz)), p_norm)
+        if Aty is not None:
+            told_norm = torch.maximum(told_norm, _inf_norm(Aty))
+        comp = (st.s * st.z).amax(dim=-1)
+        conv_el = ((prim < eps_abs + eps_rel * tolp_norm)
+                   & (dual < eps_abs + eps_rel * told_norm)
+                   & (comp < eps_abs + eps_rel * _inf_norm(st.z)))
+        resid = (prim + dual) / 2.0 + mu
+
+        d = torch.clamp(st.z / st.s, 1.0 / d_cap, d_cap)
+        solve = make_solver(d)
+
+        # Affine (predictor) step.
+        dx_a, ds_a, dz_a, dy_a = solve(rx, rs, rz, ry)
+        alpha = _step_length(((st.z, dz_a), (st.s, ds_a)))
+        sig = (((st.s + alpha * ds_a) * (st.z + alpha * dz_a)).sum(dim=-1)
+               / (st.s * st.z).sum(dim=-1)) ** 3
+
+        # Centering-corrector step.
+        rs_cor = ((-mu * sig)[..., None] + ds_a * dz_a) / st.s
+        dx_c, ds_c, dz_c, dy_c = solve(
+            torch.zeros_like(rx), rs_cor, torch.zeros_like(rz),
+            None if ry is None else torch.zeros_like(ry))
+
+        dx, ds, dz = dx_a + dx_c, ds_a + ds_c, dz_a + dz_c
+        alpha = torch.where(conv_el[..., None], 0.0,
+                            _step_length(((st.z, dz), (st.s, ds))))
+
+        error = resid.mean() if config.reduce == "mean" else resid.amax()
+        if config.verbose:
+            print(f"ip iter={it} gap={float(error):.3e}")
+        return _IPState(
+            x=st.x + alpha * dx, s=st.s + alpha * ds, z=st.z + alpha * dz,
+            y=None if st.y is None else st.y + alpha * (dy_a + dy_c),
+            error=error, primal=prim, dual=dual, converged=conv_el)
+
+    it = 0
+    while it < config.max_iters:
+        st = body(st, it)
+        it += 1
+        live = (float(st.error) >= tol if config.reduce == "mean"
+                else not bool(st.converged.all()))
+        if not live:
+            break
+
+    x_fin, y_fin = st.x, st.y
+    if config.polish:
+        def _viol(xv):
+            # The refinement residual is built from H = Q + G'WG only, so
+            # the equality residual is part of the acceptance test.
+            v = torch.clamp(_mv(G, xv) - h, min=0.0).amax(dim=-1)
+            if A is not None:
+                v = torch.maximum(v, (_mv(A, xv) - b).abs().amax(dim=-1))
+            return v
+
+        thr_acc = eps_abs + eps_rel * h_norm
+        viol_ip = _viol(st.x)
+        # Classify against slacks recomputed from x (h - Gx), not the IP's
+        # slack variables, which drift by the primal residual.
+        act = st.z > (h - _mv(G, st.x))
+        pol = gen_penalty_polish(Q, p, A, b, G, h, act=act)
+        # Round 2 repairs the guess: release rows whose AL multiplier came
+        # back negative (beyond the accumulation's w*eps noise floor), pin
+        # rows the round-1 point violates.
+        thr_lam = torch.clamp(thr_acc, min=al_lam_threshold(dtype))
+        viol_rows = (_mv(G, pol.x) - h) > thr_acc[..., None]
+        act2 = (act & (pol.lam >= -thr_lam[..., None])) | viol_rows
+        pol2 = gen_penalty_polish(Q, p, A, b, G, h, act=act2)
+
+        def _ok(pr):
+            return ((_viol(pr.x) <= torch.maximum(viol_ip, thr_acc))
+                    & (pr.lam.amin(dim=-1) >= -thr_lam))
+
+        ok2 = _ok(pol2)[..., None]
+        ok1 = _ok(pol)[..., None] & ~ok2
+        x_fin = torch.where(ok2, pol2.x, torch.where(ok1, pol.x, st.x))
+        if pol.y is not None:
+            y_fin = torch.where(ok2, pol2.y, torch.where(ok1, pol.y, st.y))
+
+    sol = QPSolution(
+        x=x_fin, lams=torch.clamp(st.z, min=1e-8),
+        slacks=torch.clamp(h - _mv(G, x_fin), min=1e-8), nus=y_fin,
+        iterations=it, primal_residual=st.primal, dual_residual=st.dual,
+        converged=st.converged)
+    return sol, f
+
+
+@solver_precision
+def optnet_grads(dl_dz, x, lams, slacks, nus, Q, A, G,
+                 f: Optional[IPFactors], int_reg: float, refine: int = 0,
+                 want_dQ: bool = True, want_dA: bool = True,
+                 want_dG: bool = True):
+    """KKT backward reusing the forward's factors:
+    (dQ, dp, dA, db, dG, dh).  ``f`` is None in condensed mode (the n x n
+    factor is rebuilt from (lams, slacks)).  ``want_*`` = False returns None
+    in place of the (B, n, n), (B, m, n) and (B, ni, n) outer products;
+    dA and db are None without A."""
+    B, ni = x.shape[0], G.shape[-2]
+    # The forward's clamp: a multiplier underflowing to 0 would make 1/d
+    # infinite in Schur mode and the gradients NaN.
+    d_cap = _d_cap(x.dtype)
+    d = torch.clamp(lams / slacks, 1.0 / d_cap, d_cap)
+    if f is None:
+        solve = _condensed_solver(Q, A, G, d, int_reg, refine)
+    else:
+        solve = functools.partial(ip_solve_kkt, f,
+                                  ip_factor_L22(f, d, int_reg), d, G, A)
+    zero_in = x.new_zeros((B, ni))
+    ry = None if A is None else x.new_zeros((B, A.shape[-2]))
+    dx, _ds, dlam_t, dnu = solve(rx=dl_dz, rs=zero_in, rz=zero_in, ry=ry)
+    # The solve's dz is D(lams) dlam (Amos & Kolter, eq. 8).
+    dlam = dlam_t / lams
+    dl_dQ = _sym_outer(dx, x) if want_dQ else None
+    dl_dG = (lams[..., :, None] * _outer(dlam, x) + _outer(lams, dx)
+             if want_dG else None)
+    dl_dA = dl_db = None
+    if A is not None:
+        if want_dA:
+            dl_dA = _outer(dnu, x) + _outer(nus, dx)
+        dl_db = -dnu
+    return dl_dQ, dx, dl_dA, dl_db, dl_dG, -lams * dlam
+
+
+class _OptNetFunction(torch.autograd.Function):
+    """Canonical-layout ((B, n)) interior-point solve with the KKT implicit
+    VJP; Schur mode keeps the forward's ``IPFactors`` for the backward."""
+
+    @staticmethod
+    def forward(ctx, config, Q, p, A, b, G, h):
+        sol, f = _solve_qp_optnet_full(Q, p, A, b, G, h, config)
+        ctx.config, ctx.factors = config, f
+        ctx.save_for_backward(sol.x, sol.lams, sol.slacks, sol.nus, Q, A, G)
+        return sol.x
+
+    @staticmethod
+    def backward(ctx, dl_dz):
+        x, lams, slacks, nus, Q, A, G = ctx.saved_tensors
+        need = ctx.needs_input_grad          # (config, Q, p, A, b, G, h)
+        grads = optnet_grads(
+            dl_dz, x, lams, slacks, nus, Q, A, G, ctx.factors,
+            float(ctx.config.int_reg), refine=int(ctx.config.refine_steps),
+            want_dQ=need[1], want_dA=need[3], want_dG=need[5])
+        return (None, *grads)
+
+
+def qp_optnet(Q, p, A=None, b=None, G=None, h=None,
+              config: OptNetConfig = OptNetConfig()):
+    """Differentiable interior-point QP layer.  Returns x in the caller's
+    layout; with G None it is ``qp_eqcon``.  dQ, dA and dG are built only
+    when Q, A or G requires grad."""
+    if G is None:
+        return qp_eqcon(Q, p, A, b)
+    x = _OptNetFunction.apply(config, Q, as_vector(p, "p"), A,
+                              as_vector(b, "b"), G, as_vector(h, "h"))
+    return like_layout(x, p)
+
+
+class OptNetLayer(nn.Module):
+    """``nn.Module`` holding an ``OptNetConfig``; ``forward`` is
+    ``qp_optnet``."""
+
+    def __init__(self, config: OptNetConfig = OptNetConfig()):
+        super().__init__()
+        self.config = config
+
+    def forward(self, Q, p, A=None, b=None, G=None, h=None):
+        return qp_optnet(Q, p, A, b, G, h, config=self.config)

@@ -7,14 +7,14 @@ from __future__ import annotations
 
 import torch
 
-from lqp_py_tpu_torch.ops.linalg import chol_solve
+from lqp_py_tpu_torch.ops.linalg import chol_solve, cholesky
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import EqQPSolution, as_vector, like_layout
 
 
 def _factor(Q):
     Q = torch.as_tensor(Q)
-    return torch.linalg.cholesky(0.5 * (Q + Q.mT))   # symmetric-manifold
+    return cholesky(0.5 * (Q + Q.mT))   # symmetric-manifold
 
 
 @solver_precision

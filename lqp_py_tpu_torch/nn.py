@@ -1,8 +1,9 @@
 """The QP layers as ``torch.nn.Module``s (counterpart of ``lqp_py_tpu.nn``).
 
-``BoxQPModule`` is the box-QP layer; ``LinearBoxQP`` is the Experiment-2
-architecture as one module.  The JAX package's ``OptNetModule`` and
-``GenQPModule`` come with their solvers in later slices of the port.
+``BoxQPModule`` is the box-QP layer, ``OptNetModule`` the interior-point
+layer; ``LinearBoxQP`` is the Experiment-2 architecture as one module.  The
+JAX package's ``GenQPModule`` comes with its solver in a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -12,11 +13,16 @@ from torch import nn
 
 from lqp_py_tpu_torch.config import BoxQPConfig
 from lqp_py_tpu_torch.models.layers import BoxQPLayer, boxqp
+from lqp_py_tpu_torch.models.optnet import OptNetLayer
 
 
 #: The differentiable box-QP layer under the JAX package's name
 #: (``lqp_py_tpu.nn.BoxQPModule``).
 BoxQPModule = BoxQPLayer
+
+#: The differentiable interior-point layer under the JAX package's name
+#: (``lqp_py_tpu.nn.OptNetModule``).
+OptNetModule = OptNetLayer
 
 
 class LinearBoxQP(nn.Module):

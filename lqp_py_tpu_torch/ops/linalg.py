@@ -15,9 +15,11 @@ is reduced by a Schur complement on ``Hinv = H^-1``:
 In mode 'inverse' P is built only on request (the early-exit step's
 operand): an ADMM iteration is one dense ``Hinv`` GEMV plus two
 rank-``n_eq`` corrections.  Mode 'cholesky' keeps ``L = chol(H)`` and
-applies ``H^-1`` by two triangular solves; ``torch.linalg.cholesky`` and
-``solve_triangular`` stand for ``lax.linalg``, which the JAX package runs
-outside any Pallas kernel, so this mode launches no SWEEP leaf.
+applies ``H^-1`` by two triangular solves; ``torch.linalg.cholesky_ex``
+and ``solve_triangular`` stand for ``lax.linalg``, which the JAX package
+runs outside any Pallas kernel, so this mode launches no SWEEP leaf.  A
+factorization that fails gives NaN for its element (``cholesky``), as in
+the JAX package.
 ``kkt_solve_cached`` differentiates one factored solve through the cached
 factors (the unrolled solve's building block).
 
@@ -54,6 +56,16 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
+def cholesky(H):
+    """Lower Cholesky factor of a batch of SPD matrices.  An element whose
+    factorization fails comes back NaN, as ``jnp.linalg.cholesky`` returns
+    it, so that its solve turns NaN and a caller's per-element acceptance
+    test rejects it; nothing raises, and the host does not wait for the
+    device's error flags."""
+    L, info = torch.linalg.cholesky_ex(H)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
 def chol_solve(L, rhs):
     """Solve ``(L L^T) x = rhs`` for batched lower-triangular ``L``.
 
@@ -76,7 +88,7 @@ def chol_inverse(L):
 
 
 def spd_inverse(H):
-    return chol_inverse(torch.linalg.cholesky(H))
+    return chol_inverse(cholesky(H))
 
 
 def _sweep_leaf(H):
@@ -211,7 +223,7 @@ def spd_solve_fast(H, R, equilibrate: bool = True,
     full float32 (TF32 stays off at every solver entry point)."""
     del precision
     if H.dtype != torch.float32:
-        return chol_solve(torch.linalg.cholesky(H), R)
+        return chol_solve(cholesky(H), R)
     if equilibrate:
         Hs, d = _equilibrate(H)
         Rs = R * d[..., :, None]
@@ -282,7 +294,7 @@ def factorize_kkt(Q, rho, A, *, mode: str = "inverse", s_reg: float = 0.0,
         H = Q + rho_diag * torch.eye(Q.shape[-1], dtype=Q.dtype,
                                      device=Q.device)
     if mode == "cholesky":
-        L = torch.linalg.cholesky(H)
+        L = cholesky(H)
         if A is None:
             return KKTFactors(L=L)
         W = chol_solve(L, A.mT)                     # (B, n, m)

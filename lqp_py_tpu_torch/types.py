@@ -42,6 +42,25 @@ class BoxQPSolution:
 
 
 @dataclasses.dataclass
+class QPSolution:
+    """Batched general-QP solution (equality and linear inequality
+    constraints); ``iterations`` is a Python ``int``, as in
+    ``BoxQPSolution``."""
+
+    x: torch.Tensor
+    lams: torch.Tensor                  # (n_batch, n_ineq) duals >= 0
+    slacks: torch.Tensor                # (n_batch, n_ineq) h - Gx >= 0
+    nus: Optional[torch.Tensor]         # (n_batch, n_eq) equality duals
+    iterations: int
+    primal_residual: torch.Tensor       # (n_batch,)
+    dual_residual: torch.Tensor         # (n_batch,)
+    converged: torch.Tensor             # (n_batch,) bool
+    #: (n_batch,) bool infeasibility certificate; None from the interior
+    #: point.
+    primal_infeasible: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
 class EqQPSolution:
     """Solution of an equality-constrained (or unconstrained) QP."""
 

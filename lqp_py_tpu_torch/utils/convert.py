@@ -1,9 +1,11 @@
 """State carried across from numpy, and so from the JAX package.
 
-The state is problem data, a ``BoxQPPrepared`` (scaled operand, scaled
-constraints, scaling vectors, rho0 and the KKT factors), a warm-start
-``BoxQPSolution``, and the weights of the Experiment-2 models
-(``LinearQP`` and ``LinearBoxQP``).  These functions take it as numpy
+The state is problem data (box or general inequalities), a
+``BoxQPPrepared`` (scaled operand, scaled constraints, scaling vectors, rho0
+and the KKT factors), a warm-start ``BoxQPSolution``, an interior-point
+``QPSolution`` and its Schur-mode ``IPFactors`` (the backward's residual
+set), and the weights of the Experiment-2 models (``LinearQP`` and
+``LinearBoxQP``).  These functions take it as numpy
 arrays — for a JAX object, the ``np.asarray`` of each of its fields, made
 by the caller — and return the port's tensors and objects on ``device``,
 the card unless the caller names another.  Nothing here imports JAX.
@@ -18,10 +20,11 @@ import torch
 
 from lqp_py_tpu_torch.config import BoxQPConfig
 from lqp_py_tpu_torch.models.box_qp import BoxQPPrepared
+from lqp_py_tpu_torch.models.optnet import IPFactors
 from lqp_py_tpu_torch.models.train import LinearQP
 from lqp_py_tpu_torch.nn import LinearBoxQP
 from lqp_py_tpu_torch.ops.linalg import KKTFactors
-from lqp_py_tpu_torch.types import BoxQPSolution
+from lqp_py_tpu_torch.types import BoxQPSolution, QPSolution
 from lqp_py_tpu_torch.utils.generators import QPData
 
 CUDA = torch.device("cuda")
@@ -39,6 +42,13 @@ def problem_from_numpy(Q, p, A=None, b=None, lb=None, ub=None, *,
     """Problem data as tensors on ``device`` (in ``dtype`` if given, else
     in each array's own)."""
     return QPData(*(_t(a, device, dtype) for a in (Q, p, A, b, lb, ub)))
+
+
+def gen_problem_from_numpy(Q, p, A=None, b=None, G=None, h=None, *,
+                           device=CUDA, dtype: Optional[torch.dtype] = None):
+    """General-inequality problem data ``(Q, p, A, b, G, h)`` as tensors on
+    ``device`` (in ``dtype`` if given, else in each array's own)."""
+    return tuple(_t(a, device, dtype) for a in (Q, p, A, b, G, h))
 
 
 def _factors_from_numpy(f: Mapping, device) -> KKTFactors:
@@ -74,6 +84,26 @@ def solution_from_numpy(d: Mapping, device=CUDA) -> BoxQPSolution:
         primal_infeasible=_t(d.get("primal_infeasible"), device),
         residual_trace=_t(d.get("residual_trace"), device),
         polished=_t(d.get("polished"), device))
+
+
+def qp_solution_from_numpy(d: Mapping, device=CUDA) -> QPSolution:
+    """A ``QPSolution`` from the fields of one (``iterations`` becomes a
+    Python int)."""
+    return QPSolution(
+        x=_t(d["x"], device), lams=_t(d["lams"], device),
+        slacks=_t(d["slacks"], device), nus=_t(d.get("nus"), device),
+        iterations=int(d["iterations"]),
+        primal_residual=_t(d["primal_residual"], device),
+        dual_residual=_t(d["dual_residual"], device),
+        converged=_t(d["converged"], device),
+        primal_infeasible=_t(d.get("primal_infeasible"), device))
+
+
+def ip_factors_from_numpy(f: Mapping, device=CUDA) -> IPFactors:
+    """Schur-mode ``IPFactors`` from their fields (``Qinv``, ``Rt``, and
+    ``S11inv`` and ``T`` where there are equality constraints)."""
+    return IPFactors(**{k: _t(f.get(k), device)
+                        for k in IPFactors._fields})
 
 
 def linear_qp_from_numpy(params, device=CUDA,

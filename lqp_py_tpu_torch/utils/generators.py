@@ -27,6 +27,16 @@ class QPData(NamedTuple):
     lb: torch.Tensor
     ub: torch.Tensor
 
+    def with_G_h(self):
+        """The box as ``G = [-I; I]``, ``h = [-lb; ub]`` for the
+        general-inequality solvers, on the data's device and dtype.  G is a
+        batch-expanded view of one (2n, n) matrix: read it, never write
+        into it."""
+        B, n = self.Q.shape[0], self.Q.shape[-1]
+        eye = torch.eye(n, dtype=self.Q.dtype, device=self.Q.device)
+        G = torch.cat([-eye, eye], dim=0).expand(B, 2 * n, n)
+        return G, torch.cat([-self.lb, self.ub], dim=-1)
+
 
 def create_qp_data(n_x: int, n_batch: int, n_samples: Optional[int] = None,
                    seed: int = 0, dtype=torch.float32,

@@ -85,7 +85,7 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         msg))
     for name, value in (("N", 200), ("B", 8), ("N_PAD", 256), ("N_HARD", 2),
                         ("N_X2", 100), ("N_BATCH2", 16), ("MINI2", 4),
-                        ("DEVICE", "cpu")):
+                        ("N_INEQ", 100), ("DEVICE", "cpu")):
         monkeypatch.setattr(cs, name, value)
 
     cs.main()
@@ -113,9 +113,16 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
     assert leaf["launches_unrolled"] == 2 and leaf["launches_cholesky"] == 0
     assert leaf["launches_polish"] >= 4 and leaf["launches_polish"] % 2 == 0
     assert leaf["launches_anderson"] >= 2
+    # Phases 16-18: two leaves per n=200 factorization (init, iterations,
+    # two polish rounds); in Schur mode two for Q^-1 and each polish round
+    # and one per ni=100 block; the leaf's error on the IP operator.
+    for key in ("launches_box_ip", "launches_optnet"):
+        assert leaf[key] >= 2 * 4 and leaf[key] % 2 == 0, key
+    assert leaf["launches_optnet_schur"] >= 2 + 2 + 4
+    assert 0 < leaf["err_ip_vs_f64"] <= 2 * leaf["plain_err_ip_vs_f64"]
     assert kernels[1]["launches_big_batch"] == 1
     phases = {line.split()[1] for line in lines if line.startswith("phase")}
-    assert phases == {str(i) for i in range(1, 16)}
+    assert phases == {str(i) for i in range(1, 19)}
 
 
 def test_chip_smoke_without_cuda_fails_before_any_result(tmp_path):

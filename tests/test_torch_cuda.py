@@ -12,8 +12,11 @@ This file imports no JAX, so it runs on a machine that has none:
 import pytest
 import torch
 
-from lqp_py_tpu_torch import BoxQPConfig, boxqp, solve_box_qp
+from lqp_py_tpu_torch import (BoxQPConfig, OptNetConfig, boxqp,
+                              solve_box_qp, solve_box_qp_ip,
+                              solve_qp_optnet)
 from lqp_py_tpu_torch.models import box_qp_grad as grads
+from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops.kernels import _build
 from lqp_py_tpu_torch.ops.kernels import admm_step as gk
 from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
@@ -337,3 +340,74 @@ def test_solve_options_on_cuda_match_cpu(cuda, cfg):
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4
     if cfg.get("polish"):
         assert torch.equal(gpu.polished.cpu(), cpu.polished)
+
+
+IP_CFG = OptNetConfig(tol=1e-5, max_iters=30, symmetrize=False)
+
+
+def _general_ineq(n, ni, B, seed, device):
+    """Random inequalities around a strictly feasible point, one equality
+    row (tests/test_optnet.py's construction)."""
+    g = torch.Generator().manual_seed(seed)
+    L = torch.randn((B, 2 * n, n), generator=g, dtype=torch.float64)
+    Q = L.mT @ L / (2 * n) + 0.1 * torch.eye(n, dtype=torch.float64)
+    p = torch.randn((B, n), generator=g, dtype=torch.float64)
+    A = torch.randn((B, 1, n), generator=g, dtype=torch.float64)
+    x0 = torch.randn((B, n), generator=g, dtype=torch.float64)
+    G = torch.randn((B, ni, n), generator=g, dtype=torch.float64)
+    h = (G @ x0[..., None])[..., 0] + 0.5 + torch.rand(
+        (B, ni), generator=g, dtype=torch.float64)
+    return [t.float().to(device) for t in (Q, p, A, (A @ x0[..., None])[
+        ..., 0], G, h)]
+
+
+@pytest.mark.parametrize("solver", ["box-ip", "optnet-condensed",
+                                    "optnet-schur"])
+def test_interior_point_on_cuda_matches_cpu(cuda, solver):
+    """The interior-point solves at n=256, float32, on the card (SWEEP
+    kernel) against the same call on the CPU (plain leaf): each n=256
+    factorization is two leaf launches, Schur mode's ni=128 block one."""
+    out = {}
+    for dev in ("cpu", cuda):
+        if solver == "optnet-schur":
+            args = _general_ineq(256, 128, 4, 9, dev)
+        else:
+            data = create_qp_data(256, 4, seed=8, device="cpu")
+            data = type(data)(*(t.to(dev) for t in data))
+            args = (data if solver == "box-ip"
+                    else (*data[:4], *data.with_G_h()))
+        fn = solve_box_qp_ip if solver == "box-ip" else solve_qp_optnet
+        before = sk.LAUNCHES
+        sol = fn(*args, config=IP_CFG)
+        out[str(dev)] = (sol, sk.LAUNCHES - before)
+    (cpu, cpu_leaves), (gpu, leaves) = out["cpu"], out["cuda"]
+    assert cpu_leaves == 0
+    it = gpu.iterations
+    want = (2 + 1 * (1 + it) + 2 * 2 if solver == "optnet-schur"
+            else 2 * (1 + it + 2))
+    assert leaves == want
+    assert bool(gpu.converged.all()) and bool(cpu.converged.all())
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4
+
+
+def test_sweep_kernel_on_an_interior_point_operator(cuda):
+    """H = Q + diag(d) with d spanning 1e-8..1e8, as the interior point's
+    operator near convergence: spd_inverse_fast (equilibrated, two kernel
+    leaves at n=256) no further from a float64 inverse than the same
+    recursion with the plain leaf, beyond a factor 2."""
+    Q = create_qp_data(256, 8, seed=10, device="cpu").Q.to(cuda)
+    g = torch.Generator().manual_seed(11)
+    d = 10.0 ** (16 * torch.rand((8, 256), generator=g) - 8)
+    H = Q.clone()
+    H.diagonal(dim1=-2, dim2=-1).add_(d.to(cuda))
+    inv64 = torch.linalg.inv(H.double())
+    before = sk.LAUNCHES
+    kern = lin.spd_inverse_fast(H)
+    assert sk.LAUNCHES == before + 2
+    Hs, de = lin._equilibrate(H)
+    plain = lin._schur_inverse(Hs, leaf=sk.sweep_spd_inverse_ref)
+    plain = plain * de[..., :, None] * de[..., None, :]
+    err_k = (kern.double() - inv64).abs().max()
+    err_p = (plain.double() - inv64).abs().max()
+    assert err_k <= 2 * err_p, (err_k.item(), err_p.item())
+    assert err_k <= 1e-4 * inv64.abs().max()

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from lqp_py_tpu import config as jcfg
-from lqp_py_tpu_torch import BoxQPConfig, box_qp_control
+from lqp_py_tpu_torch import (BoxQPConfig, OptNetConfig, box_qp_control,
+                              optnet_control)
 from lqp_py_tpu_torch import config as tcfg
 from lqp_py_tpu_torch.ops.kernels import _build
 from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
@@ -28,6 +29,10 @@ def _defaults(cls):
 def test_config_fields_and_defaults_match_jax():
     assert _defaults(BoxQPConfig) == _defaults(jcfg.BoxQPConfig)
     assert box_qp_control(eps_abs=1e-5) == BoxQPConfig(eps_abs=1e-5)
+    assert _defaults(OptNetConfig) == _defaults(jcfg.OptNetConfig)
+    assert optnet_control(tol=1e-5) == OptNetConfig(tol=1e-5)
+    with pytest.raises(TypeError):
+        optnet_control(not_a_knob=1)
 
 
 @pytest.mark.parametrize("n", [1, 10, 50, 150, 1000, 10_000])
@@ -88,7 +93,9 @@ def test_import_leaves_jax_out():
             "lqp_py_tpu_torch.ops.kernels.block_inverse",
             "lqp_py_tpu_torch.models._polish", "lqp_py_tpu_torch.models.eqcon",
             "lqp_py_tpu_torch.models.uncon",
-            "lqp_py_tpu_torch.ops.anderson"} <= set(PORT_MODULES)
+            "lqp_py_tpu_torch.ops.anderson",
+            "lqp_py_tpu_torch.models.box_ip",
+            "lqp_py_tpu_torch.models.optnet"} <= set(PORT_MODULES)
     code = ("import sys, importlib\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -103,7 +110,9 @@ def test_import_leaves_jax_out():
     "solve_box_qp_unrolled", "EqQPSolution", "qp_eqcon", "solve_qp_eqcon",
     "qp_uncon", "solve_qp_uncon", "solve_box_qp", "prepare_box_qp",
     "solve_box_qp_prepared", "boxqp", "BoxQPLayer", "BoxQP", "BoxQPConfig",
-    "box_qp_control", "BoxQPSolution"])
+    "box_qp_control", "BoxQPSolution", "OptNetConfig", "optnet_control",
+    "QPSolution", "solve_box_qp_ip", "boxqp_ip", "solve_qp_optnet",
+    "qp_optnet", "OptNetLayer"])
 def test_exports_the_jax_package_names_it_ports(name):
     import lqp_py_tpu
     import lqp_py_tpu_torch
@@ -116,6 +125,35 @@ def test_eq_solution_fields_match_jax():
     from lqp_py_tpu_torch import EqQPSolution
     assert ([f.name for f in dataclasses.fields(EqQPSolution)]
             == [f.name for f in dataclasses.fields(jtypes.EqQPSolution)])
+
+
+def test_qp_solution_fields_match_jax():
+    from lqp_py_tpu import types as jtypes
+    from lqp_py_tpu_torch import QPSolution
+    assert ([f.name for f in dataclasses.fields(QPSolution)]
+            == [f.name for f in dataclasses.fields(jtypes.QPSolution)])
+
+
+def test_optnet_module_and_box_as_inequalities():
+    """``nn.OptNetModule`` is the interior-point layer holding its config;
+    ``QPData.with_G_h`` writes the box as G = [-I; I], h = [-lb; ub] on the
+    data's device and dtype, as the JAX package does."""
+    import jax.numpy as jnp
+    from lqp_py_tpu.utils.generators import create_qp_data as jcreate
+    from lqp_py_tpu_torch import OptNetLayer
+    from lqp_py_tpu_torch import nn as tnn
+    from lqp_py_tpu_torch.utils.convert import problem_from_numpy
+
+    assert tnn.OptNetModule is OptNetLayer
+    layer = tnn.OptNetModule(OptNetConfig(tol=1e-6))
+    assert isinstance(layer, torch.nn.Module) and layer.config.tol == 1e-6
+    jd = jcreate(5, 2, seed=1, dtype=jnp.float64)
+    td = problem_from_numpy(*(np.asarray(a) for a in jd), device="cpu")
+    G, h = td.with_G_h()
+    jG, jh = jd.with_G_h()
+    assert G.dtype == h.dtype == torch.float64 and G.device == td.Q.device
+    assert torch.equal(G, torch.tensor(np.asarray(jG)))
+    assert torch.equal(h, torch.tensor(np.asarray(jh)))
 
 
 def test_sweep_wrapper_takes_plain_version_on_cpu():
@@ -227,7 +265,9 @@ def test_data_entry_points_default_to_the_card():
     fns = [generators.create_qp_data, generators.generate_hard_qp,
            convert.problem_from_numpy, convert.prepared_from_numpy,
            convert.solution_from_numpy, convert.linear_qp_from_numpy,
-           convert.linear_box_qp_from_flax, ttrain.init_params,
+           convert.linear_box_qp_from_flax, convert.gen_problem_from_numpy,
+           convert.qp_solution_from_numpy, convert.ip_factors_from_numpy,
+           ttrain.init_params,
            tnn.LinearBoxQP.__init__]
     for fn in fns:
         default = inspect.signature(fn).parameters["device"].default
