@@ -44,7 +44,18 @@ diagonal spanning ~1e8) against a float64 inverse beside the plain leaf;
 phase 17 OptNet with the box as G = [-I; I] (condensed factorization) the
 same way; phase 18 OptNet on general inequalities (ni=500 < n: Schur
 factorization) gated on relative KKT residuals and against the condensed
-factorization in float64.  Every phase raises on failure.  The line
+factorization in float64.  Phase 19 drives Experiment 1's GenQP column, the
+splitting solver on phase 5's requests with the box as G = [-I; I]
+(GenQPConfig(tol, symmetrize=False)): a direct request against the float64
+answer, the prepared serving rollout with warm starts
+(experiments/experiment_serving.py:113-143), the layer's 'kkt'
+forward+backward against a float64 backward (dG not built), a polished and
+an Anderson solve, with every factorization's leaves counted; phase 20 the
+conic backward at n=300 (its dense self-dual system under the 1 GiB
+budget, warnings as errors) against float64 and against 'kkt'; phase 21
+phase 11's trainer checkpointed after five steps, restored into a fresh
+state and resumed, bitwise the uninterrupted run.  Every phase raises on
+failure.  The line
 before the last lists each kernel with its launches on its paths, its
 error against the plain version, its time beside the plain version's, its
 bound and a library yardstick; the last line is
@@ -55,9 +66,12 @@ printing any result.
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -67,6 +81,12 @@ LEAF = 128
 N_HARD = 8          # stragglers in the phase-8 batch
 N_PAD = 1024        # n=1000 padded to the 128 and to the 256 alignment
 N_INEQ = 500        # general inequality rows of phase 18 (ni < n: Schur)
+N_CONIC = 300       # phase 20's n: the conic system fits its 1 GiB budget
+# Phase 20's gates on the conic backward's relative max-norm errors in dQ
+# and dp: f32 against f64 on one residual set (1.7e-6 on one "NVIDIA H100
+# 80GB HBM3, 700.00 W"), and conic against 'kkt' at one f32 solution
+# (1.8e-4 there: the two rules weigh the weakly active rows differently).
+CONIC_F64_GATE, CONIC_KKT_GATE = 1e-4, 2e-3
 B_BIG = 65536       # the GEMV's batch above the grid's y limit (phase 7)
 AA_WINDOW = 10      # experiments/experiment_aa.py's first window (phase 14)
 # Phase 12's gate on max|x_unrolled - x_fixed_point|: five times the
@@ -128,14 +148,18 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "check needs an NVIDIA GPU")
-    from lqp_py_tpu_torch import (BoxQPConfig, OptNetConfig, boxqp,
-                                  boxqp_ip, prepare_box_qp, qp_eqcon,
+    from lqp_py_tpu_torch import (BoxQPConfig, GenQPConfig, OptNetConfig,
+                                  boxqp, boxqp_ip, prepare_box_qp,
+                                  prepare_qp_gen, qp_eqcon, qp_gen,
                                   qp_optnet, qp_uncon, solve_box_qp,
                                   solve_box_qp_ip, solve_box_qp_prepared,
-                                  solve_qp_eqcon, solve_qp_optnet,
+                                  solve_qp_eqcon, solve_qp_gen,
+                                  solve_qp_gen_prepared, solve_qp_optnet,
                                   solve_qp_uncon)
     from lqp_py_tpu_torch.models import box_ip as bip
     from lqp_py_tpu_torch.models import box_qp_grad as grads
+    from lqp_py_tpu_torch.models import conic_grad
+    from lqp_py_tpu_torch.models import genqp as gq
     from lqp_py_tpu_torch.models import optnet as onet
     from lqp_py_tpu_torch.models import layers
     from lqp_py_tpu_torch.models import train
@@ -145,9 +169,11 @@ def main():
     from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
     from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
     from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
+    from lqp_py_tpu_torch.utils import checkpoint as ckpt
     from lqp_py_tpu_torch.utils.generators import (create_qp_data,
                                                    generate_hard_qp,
                                                    kkt_residuals)
+    from lqp_py_tpu_torch.utils.profiling import timed, trace
 
     def kkt_of(data, sol):
         return kkt_residuals(*data, sol.x, sol.lams, sol.nus)
@@ -228,10 +254,18 @@ def main():
     paced_ms = (h_k1 + h_k2) / 2
 
     def chol_inv(X):
-        return torch.cholesky_inverse(torch.linalg.cholesky(X))
+        # cholesky_ex: no read of the error flags, so the call is
+        # enqueued without waiting for the card (as the leaf is).
+        return torch.cholesky_inverse(torch.linalg.cholesky_ex(X)[0])
 
-    chol_inv(H)
-    leaf_lib_ms = _event_ms(lambda: chol_inv(H), 20)
+    # The library yardstick: the median of five warm readings, in turns
+    # with the leaf, each on the device alone (stream held).
+    for _ in range(3):
+        chol_inv(H)
+    turns3 = [(_event_ms(lambda: sk.sweep_spd_inverse(H), 20, queued=True),
+               _event_ms(lambda: chol_inv(H), 20, queued=True, host_ms=1.0))
+              for _ in range(5)]
+    leaf_lib_ms = statistics.median(lib for _, lib in turns3)
     # An SPD inverse needs about n^3 flops (Cholesky, triangular inverse and
     # the symmetric product, n^3/3 each); each matrix read and written once.
     leaf_bound = _bound(B * LEAF ** 3, 2 * 4 * B * LEAF ** 2)
@@ -246,8 +280,10 @@ def main():
           f"{kernel_ms:.4f} ms ({t_k1:.4f}, {t_k2:.4f}), host-paced "
           f"{paced_ms:.4f} ms ({h_k1:.4f}, {h_k2:.4f}), plain "
           f"{plain_ms:.4f} ms ({t_p1:.4f}, {t_p2:.4f}), "
-          f"cholesky_inverse(cholesky) {leaf_lib_ms:.4f} ms; bound "
-          f"{leaf_bound[0]:.4f} ms by {leaf_bound[1]}")
+          f"cholesky_inverse(cholesky_ex) median {leaf_lib_ms:.4f} ms of "
+          f"five warm readings in turns with the leaf, leaf/library ms ["
+          + ", ".join(f"{k:.4f}/{c:.4f}" for k, c in turns3)
+          + f"]; bound {leaf_bound[0]:.4f} ms by {leaf_bound[1]}")
 
     # 4. One factorization at the serving shape (bench.py's probe).
     data0 = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
@@ -1251,7 +1287,7 @@ def main():
           f"{4 * B * 2 * N * N / 2**30:.3f} GiB); layer vs direct backward "
           f"{wire17:.3e} (<= 1e-5); f32 vs f64 backward relative max|ddQ| "
           f"{rel17['dQ']:.3e}, max|ddp| {rel17['dp']:.3e} (<= 1e-4)")
-    del on17, x17, G17, h17, args17, data0, x64_5
+    del on17, x17, G17, h17, args17
 
     # 18. OptNet IP on general inequalities (ni < n: the Schur
     # factorization), random around a strictly feasible point as
@@ -1337,6 +1373,338 @@ def main():
           f"x_condensed_f64| {dx18:.3e} (<= 1e-3)")
     del args18, Q18, p18, A18, b18, G18, h18, on18, c18
 
+    # 19. Experiment 1's GenQP column (experiments/experiment_1.py:219-228):
+    # phase 5's requests with the box as G = [-I; I], (B, 2n, n), and
+    # GenQPConfig(tol, symmetrize=False); the prepared serving rollout of
+    # experiments/experiment_serving.py:113-143; the layer's forward+backward
+    # ('kkt'); one polished and one Anderson solve.  Every factorization is
+    # counted (it launches one leaf per 128 rows).
+    G19, h19 = data0.with_G_h()
+    args19 = (data0.Q, data0.p, data0.A, data0.b, G19, h19)
+    cfg19 = GenQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False)
+    facts19 = []
+    fact_fn = lin.factorize_kkt
+
+    def counted_fact(*a, **kw):
+        facts19.append(1)
+        return fact_fn(*a, **kw)
+
+    def counted_run(fn):
+        """fn()'s result, wall ms, leaf launches and factorizations."""
+        facts19.clear()
+        s0 = sk.LAUNCHES
+        out, ms = _wall_ms(fn)
+        return out, ms, sk.LAUNCHES - s0, len(facts19)
+
+    def x_dev(sol):
+        return (sol.x.double() - x64_5).abs().amax(dim=-1)
+
+    def solve19(cfg):
+        return solve_qp_gen(*args19, config=cfg)
+
+    lin.factorize_kkt = counted_fact
+    try:
+        sk.LAUNCHES = 0
+        sol19, ms19, leaves19, nf19 = counted_run(lambda: solve19(cfg19))
+        prep19, prep19_ms, prep_leaves19, _ = counted_run(
+            lambda: prepare_qp_gen(*args19[:1], *args19[2:], config=cfg19))
+        gp19 = np.random.default_rng(19)
+        p19, prev, served19 = data0.p, None, []
+        for k in range(4):
+            if k:
+                noise = torch.as_tensor(gp19.standard_normal(tuple(p19.shape)),
+                                        dtype=p19.dtype, device=dev)
+                p19 = p19 + 0.01 * p19.abs().mean() * noise
+            sol, ms, lv, nf = counted_run(lambda: solve_qp_gen_prepared(
+                prep19, p19, config=cfg19, warm_start=prev))
+            _check(bool(sol.converged.all())
+                   and bool(torch.isfinite(sol.x).all()),
+                   f"genqp prepared request {k}: "
+                   f"{int(sol.converged.sum())}/{B} converged")
+            _check(lv == leaves_n * nf, f"genqp prepared request {k}: {lv} "
+                   f"leaf launches for {nf} refactorizations")
+            if k == 0:
+                dprep19 = (sol.x - sol19.x).abs().max().item()
+            served19.append((sol.iterations, ms, nf))
+            prev = sol
+        launches19 = sk.LAUNCHES
+        pol19, pol19_ms, pol_leaves19, pol_nf19 = counted_run(
+            lambda: solve19(dataclasses.replace(cfg19, polish=True)))
+        aa19, aa19_ms, aa_leaves19, aa_nf19 = counted_run(
+            lambda: solve19(dataclasses.replace(cfg19,
+                                                acceleration=AA_WINDOW)))
+    finally:
+        lin.factorize_kkt = fact_fn
+    conv19 = int(sol19.converged.sum())
+    _check(conv19 == B and bool(torch.isfinite(sol19.x).all())
+           and not bool(sol19.primal_infeasible.any()),
+           f"genqp: {conv19}/{B} converged, "
+           f"{int(sol19.primal_infeasible.sum())} infeasible")
+    _check(nf19 >= 1 and leaves19 == leaves_n * nf19,
+           f"genqp: {leaves19} leaf launches for {nf19} factorizations")
+    _check(prep_leaves19 == leaves_n, f"prepare_qp_gen: {prep_leaves19} "
+           f"leaf launches")
+    _check(dprep19 <= 1e-6, f"genqp prepared vs direct {dprep19:.3e}")
+    dev19 = x_dev(sol19)
+    dx19 = dev19.max().item()
+    _check(dx19 <= 1e-3, f"genqp: max|x - x_f64| = {dx19:.3e}, "
+           f"{int((dev19 > 1e-3).sum())} elements beyond 1e-3")
+    # The polish: one factorization more than the loop's; accepted where
+    # the polished x replaced the iterate (the loop runs as unpolished).
+    _check(pol19.iterations == sol19.iterations
+           and pol_leaves19 == leaves_n * (pol_nf19 + 1),
+           f"genqp polish: {pol_leaves19} leaf launches for {pol_nf19} "
+           f"factorizations and the polish, {pol19.iterations} iterations")
+    acc19 = int((pol19.x != sol19.x).any(dim=-1).sum())
+    dx_pol19 = x_dev(pol19).max().item()
+    _check(bool(pol19.converged.all()) and dx_pol19 <= 1e-3,
+           f"genqp polish: max|x - x_f64| = {dx_pol19:.3e}")
+    conv_aa19 = int(aa19.converged.sum())
+    dx_aa19 = x_dev(aa19).max().item()
+    _check(conv_aa19 == B and aa_leaves19 == leaves_n * aa_nf19
+           and dx_aa19 <= 1e-3,
+           f"genqp Anderson: {conv_aa19}/{B} converged, {aa_leaves19} leaf "
+           f"launches for {aa_nf19} factorizations, max|x - x_f64| "
+           f"{dx_aa19:.3e}")
+
+    # The layer's forward+backward ('kkt'): gradients of sum(w x) with
+    # respect to Q and p; G does not require grad, so dG is not built.
+    want_dG19 = []
+    kkt_fn = gq.gen_qp_grad_kkt
+
+    def spy_kkt(*a, **kw):
+        want_dG19.append(kw["want_dG"])
+        return kkt_fn(*a, **kw)
+
+    def gen_fwd_bwd(cfg):
+        Qg = data0.Q.clone().requires_grad_(True)
+        pg = data0.p.clone().requires_grad_(True)
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        x = qp_gen(Qg, pg, *args19[2:], config=cfg)
+        s0 = sk.LAUNCHES
+        gQ, gp = torch.autograd.grad((w10 * x).sum(), (Qg, pg))
+        bwd_leaves = sk.LAUNCHES - s0
+        torch.cuda.synchronize()
+        return (x.detach(), gQ, gp, bwd_leaves,
+                torch.cuda.max_memory_allocated() - base_mem)
+
+    gq.gen_qp_grad_kkt = spy_kkt
+    try:
+        x19, gQ19, gp19, bwd_leaves19, peak19 = gen_fwd_bwd(cfg19)
+    finally:
+        gq.gen_qp_grad_kkt = kkt_fn
+    _check(want_dG19 == [False], f"genqp backward asked for dG: {want_dG19}")
+    _check(bwd_leaves19 == leaves_n, f"genqp backward: {bwd_leaves19} leaf "
+           f"launches, expected {leaves_n}")
+    dlayer19 = (x19 - sol19.x).abs().max().item()
+    _check(dlayer19 <= 1e-6, f"genqp: layer x vs solve x {dlayer19:.3e}")
+    res19 = (sol19.x, sol19.lams, sol19.slacks, sol19.nus, data0.Q, data0.A,
+             G19)
+    g32 = gq.gen_qp_grad_kkt(w10, *res19, want_dG=False)
+    g64 = gq.gen_qp_grad_kkt(w10.double(), *(t.double() for t in res19),
+                             want_dG=False)
+    wire19 = max(rel_max(gQ19, g32[0]), rel_max(gp19, g32[1]))
+    rel19 = {"dQ": rel_max(g32[0], g64[0]), "dp": rel_max(g32[1], g64[1])}
+    del g32, g64, gQ19, gp19
+    _check(wire19 <= 1e-5, f"genqp: layer vs direct backward {wire19:.3e}")
+    _check(all(v <= 1e-4 for v in rel19.values()),
+           f"genqp: f32 vs f64 backward, relative {rel19}")
+
+    # Times: each request and the forward+backward (utils.profiling.timed,
+    # CUDA events), and the pieces of a request: the G'G product, one
+    # factorization and one iteration's three GEMVs (G'v, Hinv r, G x).
+    t_req19 = timed(lambda: solve19(cfg19), n=3)
+    t_prep19 = timed(lambda: solve_qp_gen_prepared(prep19, data0.p,
+                                                   config=cfg19), n=3)
+    t_fb19 = timed(lambda: gen_fwd_bwd(cfg19), n=2)
+    Gs19, rho19 = prep19.Gs, prep19.rho0
+    vk = torch.ones((B, 2 * N), device=dev)
+    with highest_matmul_precision():
+        gtg19_ms = _event_ms(lambda: Gs19.mT @ Gs19, 3)
+        fact19_ms = _event_ms(lambda: lin.factorize_kkt(gq._x_operator(
+            prep19.Qs, prep19.GtG, rho19, cfg19.sigma), None, prep19.As,
+            mode="inverse"), 3)
+        gemv19_ms = _event_ms(lambda: gq._mv(Gs19, lin.kkt_apply(
+            prep19.factors, gq._mtv(Gs19, vk), prep19.bs)[0]), 10)
+    del vk, Gs19
+    # One request under the profiler (utils.profiling.trace): its kernels'
+    # summed device time (one stream: they do not overlap) over the median
+    # unprofiled request is the device's busy share; the profiled wall
+    # time carries the profiler's own cost.
+    with tempfile.TemporaryDirectory() as tmp19:
+        with trace(tmp19) as prof19:
+            _, traced19_ms = _wall_ms(lambda: solve19(cfg19))
+        busy19_ms = sum(
+            getattr(e, "self_device_time_total", 0) for e in
+            prof19.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    it19 = sol19.iterations
+    req19 = t_req19["median_s"] * 1e3
+    print(f"phase 19 GenQP (Experiment 1's GenQP column, G = [-I; I] "
+          f"({B},{2 * N},{N}), f32, tol {TOL:g}): {conv19}/{B} converged in "
+          f"{it19} iterations, {nf19} factorizations ({nf19 - 1} "
+          f"refactorizations), {leaves19} leaf launches (= {leaves_n} x "
+          f"{nf19}); max|x - x_f64| {dx19:.3e} (<= 1e-3); request ms first "
+          f"{ms19:.2f}, timed median {req19:.2f} (min "
+          f"{t_req19['min_s'] * 1e3:.2f}, max {t_req19['max_s'] * 1e3:.2f}); "
+          f"pieces: G'G {gtg19_ms:.2f} ms, one factorization "
+          f"{fact19_ms:.2f} ms, one iteration's three GEMVs {gemv19_ms:.3f} "
+          f"ms, so G'G + {nf19} factorizations + {it19} iterations = "
+          f"{(gtg19_ms + nf19 * fact19_ms + it19 * gemv19_ms) / req19:.3f} "
+          f"of the median request; one request under torch.profiler: "
+          f"{traced19_ms:.2f} ms wall, its kernels {busy19_ms:.2f} ms, "
+          f"{busy19_ms / req19:.3f} of the median request (the device's "
+          f"busy share)")
+    print(f"phase 19 GenQP serving (prepare once, 4 requests, p drifting 1% "
+          f"per request, warm-started): prepare {prep19_ms:.2f} ms "
+          f"({prep_leaves19} leaves); requests [" + "; ".join(
+              f"{it} it {ms:.2f} ms {nf} refact." for it, ms, nf in served19)
+          + f"] (cold {served19[0][0]} it, warm {[v[0] for v in served19[1:]]}"
+          f"); first request vs direct {dprep19:.3e} (<= 1e-6); timed "
+          f"prepared request median {t_prep19['median_s'] * 1e3:.2f} ms")
+    print(f"phase 19 GenQP forward+backward (qp_gen, 'kkt', d/dQ and d/dp "
+          f"of sum(w x)): {bwd_leaves19} leaf launches in the backward (= "
+          f"{leaves_n}); dG not built (want_dG {want_dG19[0]}); layer vs "
+          f"direct backward {wire19:.3e} (<= 1e-5); f32 vs f64 backward "
+          f"relative max|ddQ| {rel19['dQ']:.3e}, max|ddp| {rel19['dp']:.3e} "
+          f"(<= 1e-4); peak memory above the inputs {peak19 / 2**30:.3f} GiB "
+          f"(a dG would be {4 * B * 2 * N * N / 2**30:.3f} GiB); timed "
+          f"median {t_fb19['median_s'] * 1e3:.2f} ms (min "
+          f"{t_fb19['min_s'] * 1e3:.2f})")
+    print(f"phase 19 GenQP polish: {acc19}/{B} accepted, {pol19.iterations} "
+          f"iterations, {pol_leaves19} leaf launches (= {leaves_n} x "
+          f"({pol_nf19} + 1)), max|x - x_f64| {dx_pol19:.3e} (<= 1e-3; "
+          f"unpolished {dx19:.3e}), {pol19_ms:.2f} ms; Anderson window "
+          f"{AA_WINDOW}: {conv_aa19}/{B} converged in {aa19.iterations} "
+          f"iterations ({aa_nf19} factorizations), max|x - x_f64| "
+          f"{dx_aa19:.3e} (<= 1e-3), {aa19_ms:.2f} ms")
+    del sol19, pol19, aa19, prep19, prev, x19, res19, args19, G19, h19
+    del data0, x64_5
+
+    # 20. The conic backward on the card: phase 19's construction at
+    # n=N_CONIC, where the dense self-dual system (B, N, N) with
+    # N = n + 1 + 2n fits the 1 GiB budget.  Warnings are errors: a
+    # fallback to 'kkt' fails the phase.
+    data20 = create_qp_data(N_CONIC, B, seed=0, dtype=torch.float32,
+                            device=dev)
+    G20, h20 = data20.with_G_h()
+    args20 = (data20.Q, data20.p, data20.A, data20.b, G20, h20)
+    cfg20 = GenQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False,
+                        backward="conic")
+    need20 = conic_grad.conic_backward_bytes(B, N_CONIC, 1, 2 * N_CONIC, 4)
+    _check(need20 <= conic_grad.CONIC_BACKWARD_MAX_BYTES,
+           f"conic system {need20} bytes above the budget")
+    w20 = torch.as_tensor(np.random.default_rng(20).standard_normal(
+        (B, N_CONIC)), dtype=torch.float32, device=dev)
+    solves20 = []
+    solve_fn = torch.linalg.solve
+
+    def spy_solve(Amat, rhs):
+        solves20.append((Amat, rhs))
+        return solve_fn(Amat, rhs)
+
+    Q20 = data20.Q.clone().requires_grad_(True)
+    p20 = data20.p.clone().requires_grad_(True)
+    torch.linalg.solve = spy_solve
+    ms20 = []
+    try:
+        # Twice: the first call includes the library's set-up.
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            for _ in range(2):
+                x20, fwd_ms = _wall_ms(lambda: qp_gen(Q20, p20, *args20[2:],
+                                                      config=cfg20))
+                (gQ20, gp20), bwd_ms = _wall_ms(lambda: torch.autograd.grad(
+                    (w20 * x20).sum(), (Q20, p20)))
+                ms20.append((fwd_ms, bwd_ms))
+    finally:
+        torch.linalg.solve = solve_fn
+    _check(len(solves20) == 2, f"conic backward: {len(solves20)} solves "
+           f"in two calls")
+    sol20 = solve_qp_gen(*args20, config=cfg20)
+    _check(bool(sol20.converged.all()), f"conic phase forward: "
+           f"{int(sol20.converged.sum())}/{B} converged")
+    res20 = (sol20.x, sol20.lams, sol20.slacks)
+    c32 = conic_grad.conic_qp_grads(w20, *res20, data20.Q, data20.A, G20,
+                                    want_dA=False, want_dG=False)
+    c64 = conic_grad.conic_qp_grads(
+        w20.double(), *(t.double() for t in res20), data20.Q.double(),
+        data20.A.double(), G20.double(), want_dA=False, want_dG=False)
+    k32 = gq.gen_qp_grad_kkt(w20, *res20, sol20.nus, data20.Q, data20.A,
+                             G20, want_dA=False, want_dG=False)
+    wire20 = max(rel_max(gQ20, c32[0]), rel_max(gp20, c32[1]))
+    rel20 = {"dQ": rel_max(c32[0], c64[0]), "dp": rel_max(c32[1], c64[1])}
+    vs_kkt20 = {"dQ": rel_max(c32[0], k32[0]), "dp": rel_max(c32[1], k32[1])}
+    _check(wire20 <= 1e-5, f"conic: layer vs direct backward {wire20:.3e}")
+    _check(all(v <= CONIC_F64_GATE for v in rel20.values()),
+           f"conic: f32 vs f64 backward, relative {rel20}")
+    _check(all(v <= CONIC_KKT_GATE for v in vs_kkt20.values()),
+           f"conic vs kkt backward, relative {vs_kkt20}")
+    mat20, rhs20 = solves20[0]
+    with highest_matmul_precision():
+        lu20_ms = _event_ms(lambda: solve_fn(mat20, rhs20), 3)
+    N20 = N_CONIC + 1 + 2 * N_CONIC
+    print(f"phase 20 conic backward (B={B}, n={N_CONIC}, G = [-I; I], f32, "
+          f"tol {TOL:g}): the self-dual system ({B},{N20},{N20}) "
+          f"{need20 / 2**30:.3f} GiB (budget "
+          f"{conic_grad.CONIC_BACKWARD_MAX_BYTES / 2**30:.0f} GiB), no "
+          f"fallback warning; {sol20.iterations} iterations forward, "
+          f"{B}/{B} converged; layer vs direct backward {wire20:.3e} "
+          f"(<= 1e-5); f32 vs f64 conic backward relative max|ddQ| "
+          f"{rel20['dQ']:.3e}, max|ddp| {rel20['dp']:.3e} (<= "
+          f"{CONIC_F64_GATE:g}); conic vs kkt at the same solution relative "
+          f"max|ddQ| {vs_kkt20['dQ']:.3e}, max|ddp| {vs_kkt20['dp']:.3e} (<= "
+          f"{CONIC_KKT_GATE:g}); forward/backward ms first "
+          f"{ms20[0][0]:.2f}/{ms20[0][1]:.2f}, second "
+          f"{ms20[1][0]:.2f}/{ms20[1][1]:.2f}; one torch.linalg.solve "
+          f"{lu20_ms:.2f} ms")
+    del data20, G20, h20, args20, x20, gQ20, gp20, c32, c64, k32, mat20
+    del rhs20, solves20, sol20, res20
+
+    # 21. Phase 11's trainer through checkpointed_run: ten steps
+    # uninterrupted; five steps checkpointed under a temporary directory,
+    # restored into a fresh state and resumed with the full index matrix.
+    run21 = train.make_train_scan(BoxQPConfig(eps_abs=TOL, eps_rel=TOL),
+                                  lr=LR2)
+    sel21 = torch.as_tensor(sel11, device=dev)
+
+    def state21(seed):
+        return ckpt.init_train_state(train.init_params(
+            N_FEAT2, N_X2, generator=torch.Generator(device=dev).manual_seed(
+                seed), device=dev), STEPS2)
+
+    s0 = sk.LAUNCHES
+    full21, full21_ms = _wall_ms(lambda: ckpt.checkpointed_run(
+        run21, state21(11), sel21, *full11))
+    leaves21 = sk.LAUNCHES - s0
+    with tempfile.TemporaryDirectory() as tmp21:
+        ckpt.checkpointed_run(run21, state21(11), sel21[:STEPS2 // 2],
+                              *full11, root=tmp21, every=STEPS2 // 2)
+        latest21 = ckpt.latest_checkpoint(tmp21)
+        _check(latest21 is not None
+               and latest21.name == f"step_{STEPS2 // 2}",
+               f"latest checkpoint {latest21}")
+        resumed21 = ckpt.restore_train_state(latest21, state21(21))
+        finished21 = ckpt.checkpointed_run(run21, resumed21, sel21, *full11)
+    same21 = {"losses": torch.equal(finished21.losses, full21.losses),
+              "W": torch.equal(finished21.params.W, full21.params.W),
+              "bias": torch.equal(finished21.params.bias,
+                                  full21.params.bias)}
+    _check(all(same21.values()) and finished21.epoch == STEPS2,
+           f"resumed trainer differs from the uninterrupted one: {same21}")
+    _check(bool(torch.isfinite(full21.losses).all()),
+           f"checkpointed trainer losses {full21.losses.tolist()}")
+    same11 = full21.losses.tolist() == losses11
+    print(f"phase 21 checkpointed trainer (phase 11's: n_x={N_X2}, "
+          f"{STEPS2} steps): uninterrupted {full21_ms:.2f} ms, {leaves21} "
+          f"leaf launches; {STEPS2 // 2} steps, checkpoint, restore into a "
+          f"fresh state, resume with the full sel: losses, W and bias "
+          f"bitwise the uninterrupted run's; losses "
+          f"{'bitwise' if same11 else 'not bitwise'} phase 11's per-step "
+          f"loop; loss per step "
+          f"[{', '.join(f'{v:.5f}' for v in full21.losses.tolist())}]")
+
     print(json.dumps({"kernels": [{
         "name": "sweep_spd_inverse", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/sweep_spd_inverse.cu",
@@ -1346,7 +1714,9 @@ def main():
         "launches_unrolled": launches12, "launches_polish": pol_leaves13,
         "launches_cholesky": chol_leaves13, "launches_anderson": aa_leaves14,
         "launches_box_ip": launches16, "launches_optnet": launches17,
-        "launches_optnet_schur": launches18, "err_ip_vs_f64": err16_k,
+        "launches_optnet_schur": launches18, "launches_genqp": launches19,
+        "launches_genqp_bwd": bwd_leaves19,
+        "launches_genqp_polish": pol_leaves19, "err_ip_vs_f64": err16_k,
         "plain_err_ip_vs_f64": err16_p,
         "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
         "plain_ms": plain_ms, "bound_ms": leaf_bound[0],

@@ -12,17 +12,22 @@ equality-constrained and unconstrained solvers (``qp_eqcon``,
 ``qp_uncon``); the interior-point solvers, box-structured
 (``solve_box_qp_ip``, ``boxqp_ip``) and general (``solve_qp_optnet``,
 ``qp_optnet``, ``OptNetLayer``; Schur and condensed factorizations, polish
-and the KKT implicit backward); the ``nn.Module``s of
-``lqp_py_tpu_torch.nn`` and the Experiment-2 trainer
-(``models/train.py``).  Its three kernels, the 128x128 SWEEP leaf of the
+and the KKT implicit backward); the general-inequality splitting solver
+(``solve_qp_gen``, ``prepare_qp_gen`` + ``solve_qp_gen_prepared``,
+``qp_gen``, ``GenQPLayer``, the stateful ``GenQP``; KKT and conic
+backward passes; ``scs_control``); the ``nn.Module``s of
+``lqp_py_tpu_torch.nn``, the Experiment-2 trainer (``models/train.py``),
+its checkpoints (``utils/checkpoint.py``) and the timing helpers of
+``utils/profiling.py``.  Its three kernels, the 128x128 SWEEP leaf of the
 SPD inverse, the early-exit GEMV and the whole-matrix block-sweep inverse
 (``ops/kernels/block_inverse.py``, an entry point of its own that no
 solver calls), are CUDA C++ for Hopper (``csrc/``), built with nvcc on
 first use; on a CPU tensor their plain PyTorch versions run instead.
 """
 
-from lqp_py_tpu_torch.config import (BoxQPConfig, OptNetConfig,
-                                     box_qp_control, optnet_control)
+from lqp_py_tpu_torch.config import (BoxQPConfig, GenQPConfig, OptNetConfig,
+                                     box_qp_control, genqp_control,
+                                     optnet_control, scs_control)
 from lqp_py_tpu_torch.types import BoxQPSolution, EqQPSolution, QPSolution
 from lqp_py_tpu_torch.models.box_qp import (
     BoxQPPrepared,
@@ -37,6 +42,9 @@ from lqp_py_tpu_torch.models.uncon import qp_uncon, solve_qp_uncon
 from lqp_py_tpu_torch.models.box_ip import boxqp_ip, solve_box_qp_ip
 from lqp_py_tpu_torch.models.optnet import (OptNetLayer, qp_optnet,
                                             solve_qp_optnet)
+from lqp_py_tpu_torch.models.genqp import (GenQP, GenQPLayer, prepare_qp_gen,
+                                           qp_gen, solve_qp_gen,
+                                           solve_qp_gen_prepared)
 
 __all__ = [
     "BoxQPConfig", "box_qp_control", "BoxQPSolution", "EqQPSolution",
@@ -46,4 +54,6 @@ __all__ = [
     "qp_eqcon", "solve_qp_eqcon", "qp_uncon", "solve_qp_uncon",
     "OptNetConfig", "optnet_control", "QPSolution", "solve_box_qp_ip",
     "boxqp_ip", "solve_qp_optnet", "qp_optnet", "OptNetLayer",
+    "GenQPConfig", "genqp_control", "scs_control", "prepare_qp_gen",
+    "solve_qp_gen_prepared", "GenQP", "GenQPLayer", "qp_gen", "solve_qp_gen",
 ]

@@ -9,7 +9,9 @@ forward solve (with ``use_pallas_step``, ``polish``, ``acceleration`` and
 ``kkt_solver``), both implicit backward modes (``backward`` =
 'fixed_point' or 'kkt', ``backward_reg``) and the unrolled one (``unroll``,
 ``unroll_iters``).  ``OptNetConfig`` drives both interior-point solvers
-(models/box_ip.py, models/optnet.py).
+(models/box_ip.py, models/optnet.py), ``GenQPConfig`` the
+general-inequality splitting solver (models/genqp.py); ``scs_control``
+maps the reference's SCS knob names onto it.
 """
 
 from __future__ import annotations
@@ -144,6 +146,52 @@ class OptNetConfig:
     polish: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class GenQPConfig:
+    """Configuration for the batched general-inequality splitting solver:
+    ``min 1/2 x'Qx + p'x  s.t.  Ax = b, Gx <= h``."""
+
+    max_iters: int = 20_000
+    eps_abs: float = 1e-4
+    eps_rel: float = 1e-4
+    check_solved: int = 25
+    #: Splitting penalty; ``None`` -> per-element auto:
+    #: rho_scale * ||D Q D||_F / sqrt(n).
+    rho: Optional[float] = None
+    rho_scale: float = 0.3
+    rho_min: float = 1e-6
+    rho_max: float = 1e6
+    sigma: float = 1e-6
+    symmetrize: bool = True
+    #: Over-relaxation on the splitting variable (1.0 = plain iteration).
+    alpha: float = 1.6
+    adaptive_rho: bool = True
+    adaptive_rho_tol: float = 5.0
+    adaptive_rho_iter: int = 100
+    adaptive_rho_max_iter: int = 4000
+    adaptive_rho_threshold: float = 1e-5
+    #: True moves each element's rho on its own ratio; False rescales every
+    #: element (still masked by its own convergence gate) whenever any one
+    #: is out of band, the reference's behaviour and the default here.
+    adaptive_rho_per_element: bool = False
+    verbose: bool = False
+    scale: bool = True
+    #: Backward mode: 'kkt' (active-set KKT implicit differentiation) or
+    #: 'conic' (SCS-style projection-derivative implicit differentiation).
+    backward: str = "kkt"
+    detect_infeasibility: bool = True
+    eps_infeas: float = 1e-5
+    polish: bool = False
+    #: Anderson-acceleration window on the (w, u) fixed point; 0 = off.
+    acceleration: int = 0
+    aa_safeguard: float = 2.0
+    aa_reg: float = 1e-8
+    aa_max_weight: float = 1e3
+
+    def __post_init__(self):
+        _check_acceleration(self.acceleration)
+
+
 def box_qp_control(**kwargs) -> BoxQPConfig:
     """Dict-style constructor mirroring the reference's ``box_qp_control``.
 
@@ -155,3 +203,52 @@ def box_qp_control(**kwargs) -> BoxQPConfig:
 def optnet_control(**kwargs) -> OptNetConfig:
     """Dict-style constructor of an ``OptNetConfig``."""
     return OptNetConfig(**kwargs)
+
+
+def genqp_control(**kwargs) -> GenQPConfig:
+    """Dict-style constructor of a ``GenQPConfig``."""
+    return GenQPConfig(**kwargs)
+
+
+#: The reference's ``scs_control`` knobs with no counterpart in the batched
+#: lock-step solver: the sequential C solver's plumbing, per-k Anderson
+#: scheduling and wall-clock limits.
+_SCS_UNSUPPORTED = {
+    "use_indirect", "mkl", "gpu",
+    "acceleration_interval", "time_limit_secs", "write_data_filename",
+    "log_csv_filename",
+}
+
+
+def scs_control(**kwargs) -> GenQPConfig:
+    """A ``GenQPConfig`` from the reference's ``scs_control`` knob names.
+
+    normalize -> scale; scale -> rho (SCS's dual scale is the splitting
+    penalty); adaptive_scale -> adaptive_rho; rho_x -> sigma;
+    acceleration_lookback -> acceleration (its magnitude: the batched
+    acceleration is type-II); eps_infeas sets the certificate tolerance and
+    turns detection on; alpha, eps_abs/eps_rel, max_iters and verbose pass
+    through.  Knobs in ``_SCS_UNSUPPORTED`` raise unless
+    ``ignore_unsupported=True``, which drops them.
+    """
+    kwargs = dict(kwargs)
+    ignore = kwargs.pop("ignore_unsupported", False)
+    unsupported = sorted(set(kwargs) & _SCS_UNSUPPORTED)
+    if unsupported and not ignore:
+        raise ValueError(
+            f"scs_control knobs {unsupported} have no counterpart in "
+            f"lqp_py_tpu_torch's batched splitting solver (see PARITY.md); "
+            f"pass ignore_unsupported=True to drop them")
+    for k in _SCS_UNSUPPORTED:
+        kwargs.pop(k, None)
+    if "scale" in kwargs:
+        kwargs.setdefault("rho", float(kwargs.pop("scale")))
+    if "acceleration_lookback" in kwargs:
+        kwargs.setdefault(
+            "acceleration", abs(int(kwargs.pop("acceleration_lookback"))))
+    if "eps_infeas" in kwargs:
+        kwargs.setdefault("detect_infeasibility", True)
+        kwargs["eps_infeas"] = float(kwargs["eps_infeas"])
+    rename = {"normalize": "scale", "adaptive_scale": "adaptive_rho",
+              "rho_x": "sigma"}
+    return GenQPConfig(**{rename.get(k, k): v for k, v in kwargs.items()})

@@ -8,9 +8,10 @@
 
 Both take the residual set the layer saves (unscaled, (B, n) / (B, m)
 layout) and return ``(dQ, dp, dA, db, dlb, dub)``.  ``want_dQ`` /
-``want_dA`` = False return None in place of the (B, n, n) and (B, m, n)
-outer products: the JAX package builds them and leaves XLA to drop the
-dead ones, eager PyTorch would build them all.
+``want_dA`` (and ``qp_int_grads``'s ``want_dG``) = False return None in
+place of the (B, n, n), (B, m, n) (and (B, k, n)) outer products: the
+JAX package builds them and leaves XLA to drop the dead ones, eager
+PyTorch would build them all.
 """
 
 from __future__ import annotations
@@ -167,13 +168,14 @@ def solve_kkt_backwards(dl_dz, sol_mat, n_eq, n_ineq):
 
 
 def qp_int_grads(x, lams, nus, dx, dlam, dnu, want_dQ: bool = True,
-                 want_dA: bool = True) -> Tuple:
+                 want_dA: bool = True, want_dG: bool = True) -> Tuple:
     """OptNet-style gradient assembly from the differentials:
     (dQ, dp, dA, db, dG, dh)."""
     dl_dQ = _sym_outer(dx, x) if want_dQ else None
     dl_dG = dl_dh = None
     if dlam is not None:
-        dl_dG = lams[..., :, None] * _outer(dlam, x) + _outer(lams, dx)
+        if want_dG:
+            dl_dG = lams[..., :, None] * _outer(dlam, x) + _outer(lams, dx)
         dl_dh = -lams * dlam
     dl_dA = dl_db = None
     if dnu is not None:

@@ -1,9 +1,8 @@
 """The QP layers as ``torch.nn.Module``s (counterpart of ``lqp_py_tpu.nn``).
 
 ``BoxQPModule`` is the box-QP layer, ``OptNetModule`` the interior-point
-layer; ``LinearBoxQP`` is the Experiment-2 architecture as one module.  The
-JAX package's ``GenQPModule`` comes with its solver in a later slice of the
-port.
+layer, ``GenQPModule`` the general-inequality splitting layer;
+``LinearBoxQP`` is the Experiment-2 architecture as one module.
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ import torch
 from torch import nn
 
 from lqp_py_tpu_torch.config import BoxQPConfig
+from lqp_py_tpu_torch.models.genqp import GenQPLayer
 from lqp_py_tpu_torch.models.layers import BoxQPLayer, boxqp
 from lqp_py_tpu_torch.models.optnet import OptNetLayer
 
@@ -23,6 +23,10 @@ BoxQPModule = BoxQPLayer
 #: The differentiable interior-point layer under the JAX package's name
 #: (``lqp_py_tpu.nn.OptNetModule``).
 OptNetModule = OptNetLayer
+
+#: The differentiable general-inequality layer under the JAX package's name
+#: (``lqp_py_tpu.nn.GenQPModule``).
+GenQPModule = GenQPLayer
 
 
 class LinearBoxQP(nn.Module):

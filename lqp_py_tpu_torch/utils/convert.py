@@ -2,7 +2,7 @@
 
 The state is problem data (box or general inequalities), a
 ``BoxQPPrepared`` (scaled operand, scaled constraints, scaling vectors, rho0
-and the KKT factors), a warm-start ``BoxQPSolution``, an interior-point
+and the KKT factors) or a ``GenQPPrepared``, a warm-start ``BoxQPSolution``, an interior-point
 ``QPSolution`` and its Schur-mode ``IPFactors`` (the backward's residual
 set), and the weights of the Experiment-2 models (``LinearQP`` and
 ``LinearBoxQP``).  These functions take it as numpy
@@ -20,6 +20,7 @@ import torch
 
 from lqp_py_tpu_torch.config import BoxQPConfig
 from lqp_py_tpu_torch.models.box_qp import BoxQPPrepared
+from lqp_py_tpu_torch.models.genqp import GenQPPrepared
 from lqp_py_tpu_torch.models.optnet import IPFactors
 from lqp_py_tpu_torch.models.train import LinearQP
 from lqp_py_tpu_torch.nn import LinearBoxQP
@@ -67,6 +68,18 @@ def prepared_from_numpy(d: Mapping, device=CUDA) -> BoxQPPrepared:
         ubs=_t(d["ubs"], device), D=_t(d["D"], device),
         E=_t(d.get("E"), device), rho0=_t(d["rho0"], device),
         factors=_factors_from_numpy(d["factors"], device))
+
+
+def gen_prepared_from_numpy(d: Mapping, device=CUDA) -> GenQPPrepared:
+    """A ``GenQPPrepared`` from the fields of one (``Qs``, ``Gs``, ``hs``,
+    ``D``, ``EG``, ``rho0``, ``GtG``, ``As``, ``bs`` and ``EA`` where there
+    are equality rows, ``factors`` as a mapping of ``KKTFactors`` fields,
+    and ``key``, the tuple of config fields, () if absent)."""
+    return GenQPPrepared(
+        **{k: _t(d.get(k), device) for k in (
+            "Qs", "As", "bs", "Gs", "hs", "D", "EG", "EA", "rho0", "GtG")},
+        factors=_factors_from_numpy(d["factors"], device),
+        key=tuple(d.get("key", ())))
 
 
 def solution_from_numpy(d: Mapping, device=CUDA) -> BoxQPSolution:

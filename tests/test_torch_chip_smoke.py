@@ -85,7 +85,7 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         msg))
     for name, value in (("N", 200), ("B", 8), ("N_PAD", 256), ("N_HARD", 2),
                         ("N_X2", 100), ("N_BATCH2", 16), ("MINI2", 4),
-                        ("N_INEQ", 100), ("DEVICE", "cpu")):
+                        ("N_INEQ", 100), ("N_CONIC", 40), ("DEVICE", "cpu")):
         monkeypatch.setattr(cs, name, value)
 
     cs.main()
@@ -120,9 +120,15 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         assert leaf[key] >= 2 * 4 and leaf[key] % 2 == 0, key
     assert leaf["launches_optnet_schur"] >= 2 + 2 + 4
     assert 0 < leaf["err_ip_vs_f64"] <= 2 * leaf["plain_err_ip_vs_f64"]
+    # Phase 19: two leaves per n=200 factorization on the genqp forward
+    # (direct and prepared requests), the polished solve (one more) and
+    # the backward's solve.
+    assert leaf["launches_genqp"] >= 2 * 2 and leaf["launches_genqp"] % 2 == 0
+    assert leaf["launches_genqp_polish"] >= 2 * 2
+    assert leaf["launches_genqp_bwd"] == 2
     assert kernels[1]["launches_big_batch"] == 1
     phases = {line.split()[1] for line in lines if line.startswith("phase")}
-    assert phases == {str(i) for i in range(1, 19)}
+    assert phases == {str(i) for i in range(1, 22)}
 
 
 def test_chip_smoke_without_cuda_fails_before_any_result(tmp_path):

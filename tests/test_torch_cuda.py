@@ -12,9 +12,9 @@ This file imports no JAX, so it runs on a machine that has none:
 import pytest
 import torch
 
-from lqp_py_tpu_torch import (BoxQPConfig, OptNetConfig, boxqp,
-                              solve_box_qp, solve_box_qp_ip,
-                              solve_qp_optnet)
+from lqp_py_tpu_torch import (BoxQPConfig, GenQPConfig, OptNetConfig,
+                              boxqp, qp_gen, solve_box_qp, solve_box_qp_ip,
+                              solve_qp_gen, solve_qp_optnet)
 from lqp_py_tpu_torch.models import box_qp_grad as grads
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops.kernels import _build
@@ -411,3 +411,33 @@ def test_sweep_kernel_on_an_interior_point_operator(cuda):
     err_p = (plain.double() - inv64).abs().max()
     assert err_k <= 2 * err_p, (err_k.item(), err_p.item())
     assert err_k <= 1e-4 * inv64.abs().max()
+
+
+def test_genqp_on_cuda_matches_cpu(cuda):
+    """The splitting solver at n=256 with the box as G = [-I; I], float32:
+    the forward and the 'kkt' backward (gradients with respect to Q and p)
+    on the card against the same calls on the CPU (plain leaf); each
+    factorization is two leaf launches, the backward's solve two."""
+    cfg = GenQPConfig(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False)
+    out = {}
+    for dev in ("cpu", cuda):
+        data = create_qp_data(256, 4, seed=12, device="cpu")
+        data = type(data)(*(t.to(dev) for t in data))
+        args = (*data[:4], *data.with_G_h())
+        before = sk.LAUNCHES
+        sol = solve_qp_gen(*args, config=cfg)
+        fwd = sk.LAUNCHES - before
+        Q = args[0].clone().requires_grad_(True)
+        p = args[1].clone().requires_grad_(True)
+        x = qp_gen(Q, p, *args[2:], config=cfg)
+        before = sk.LAUNCHES
+        gQ, gp = torch.autograd.grad(x.square().sum(), (Q, p))
+        out[str(dev)] = (sol, fwd, sk.LAUNCHES - before, gQ.cpu(), gp.cpu())
+    (cpu, cpu_fwd, cpu_bwd, gQc, gpc) = out["cpu"]
+    (gpu, fwd, bwd, gQg, gpg) = out["cuda"]
+    assert cpu_fwd == cpu_bwd == 0
+    assert fwd >= 2 and fwd % 2 == 0 and bwd == 2
+    assert bool(gpu.converged.all()) and bool(cpu.converged.all())
+    assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4
+    for g_, c in ((gQg, gQc), (gpg, gpc)):
+        assert (g_ - c).abs().max() <= 1e-4 * c.abs().max()

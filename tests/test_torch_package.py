@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from lqp_py_tpu import config as jcfg
-from lqp_py_tpu_torch import (BoxQPConfig, OptNetConfig, box_qp_control,
-                              optnet_control)
+from lqp_py_tpu_torch import (BoxQPConfig, GenQPConfig, OptNetConfig,
+                              box_qp_control, genqp_control, optnet_control,
+                              scs_control)
 from lqp_py_tpu_torch import config as tcfg
 from lqp_py_tpu_torch.ops.kernels import _build
 from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
@@ -33,6 +34,49 @@ def test_config_fields_and_defaults_match_jax():
     assert optnet_control(tol=1e-5) == OptNetConfig(tol=1e-5)
     with pytest.raises(TypeError):
         optnet_control(not_a_knob=1)
+    assert _defaults(GenQPConfig) == _defaults(jcfg.GenQPConfig)
+    assert genqp_control(eps_abs=1e-5) == GenQPConfig(eps_abs=1e-5)
+    with pytest.raises(TypeError):
+        genqp_control(not_a_knob=1)
+    with pytest.raises(ValueError) as theirs:
+        jcfg.GenQPConfig(acceleration=-1)
+    with pytest.raises(ValueError, match=re.escape(str(theirs.value))):
+        GenQPConfig(acceleration=-1)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(normalize=False, scale=0.7, adaptive_scale=False, rho_x=1e-5,
+         alpha=1.5, eps_abs=1e-6, eps_rel=1e-7, max_iters=500,
+         verbose=True),
+    dict(acceleration_lookback=-10),
+    dict(acceleration_lookback=5, acceleration=3),
+    dict(eps_infeas=1e-7, detect_infeasibility=False),
+    dict(use_indirect=True, time_limit_secs=3.0, ignore_unsupported=True),
+    dict(mkl=True, gpu=False),
+    dict(acceleration_interval=10),
+    dict(not_a_knob=1),
+], ids=["defaults", "renames", "lookback", "lookback-and-acceleration",
+        "eps-infeas", "ignored", "unsupported", "unsupported-aa-interval",
+        "unknown"])
+def test_scs_control_maps_and_raises_like_jax(kw):
+    """The reference's SCS knob names map onto the same ``GenQPConfig``;
+    knobs with no counterpart raise the same error, naming the port."""
+    try:
+        theirs = jcfg.scs_control(**kw)
+    except (TypeError, ValueError) as err:
+        with pytest.raises(type(err)) as ours:
+            scs_control(**kw)
+        if isinstance(err, ValueError):
+            # The same knobs, the port named in place of the JAX package.
+            assert str(err).split(" have ")[0] == str(ours.value).split(
+                " have ")[0]
+            assert "lqp_py_tpu_torch" in str(ours.value)
+            assert "TPU" not in str(ours.value)
+        return
+    assert _defaults(type(scs_control(**kw))) == _defaults(GenQPConfig)
+    assert (dataclasses.asdict(scs_control(**kw))
+            == dataclasses.asdict(theirs))
 
 
 @pytest.mark.parametrize("n", [1, 10, 50, 150, 1000, 10_000])
@@ -95,7 +139,11 @@ def test_import_leaves_jax_out():
             "lqp_py_tpu_torch.models.uncon",
             "lqp_py_tpu_torch.ops.anderson",
             "lqp_py_tpu_torch.models.box_ip",
-            "lqp_py_tpu_torch.models.optnet"} <= set(PORT_MODULES)
+            "lqp_py_tpu_torch.models.optnet",
+            "lqp_py_tpu_torch.models.genqp",
+            "lqp_py_tpu_torch.models.conic_grad",
+            "lqp_py_tpu_torch.utils.profiling",
+            "lqp_py_tpu_torch.utils.checkpoint"} <= set(PORT_MODULES)
     code = ("import sys, importlib\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -112,7 +160,9 @@ def test_import_leaves_jax_out():
     "solve_box_qp_prepared", "boxqp", "BoxQPLayer", "BoxQP", "BoxQPConfig",
     "box_qp_control", "BoxQPSolution", "OptNetConfig", "optnet_control",
     "QPSolution", "solve_box_qp_ip", "boxqp_ip", "solve_qp_optnet",
-    "qp_optnet", "OptNetLayer"])
+    "qp_optnet", "OptNetLayer", "GenQPConfig", "genqp_control",
+    "scs_control", "prepare_qp_gen", "solve_qp_gen_prepared", "GenQP",
+    "GenQPLayer", "qp_gen", "solve_qp_gen"])
 def test_exports_the_jax_package_names_it_ports(name):
     import lqp_py_tpu
     import lqp_py_tpu_torch
@@ -135,7 +185,8 @@ def test_qp_solution_fields_match_jax():
 
 
 def test_optnet_module_and_box_as_inequalities():
-    """``nn.OptNetModule`` is the interior-point layer holding its config;
+    """``nn.OptNetModule`` is the interior-point layer holding its config,
+    ``nn.GenQPModule`` the splitting layer;
     ``QPData.with_G_h`` writes the box as G = [-I; I], h = [-lb; ub] on the
     data's device and dtype, as the JAX package does."""
     import jax.numpy as jnp
@@ -145,6 +196,9 @@ def test_optnet_module_and_box_as_inequalities():
     from lqp_py_tpu_torch.utils.convert import problem_from_numpy
 
     assert tnn.OptNetModule is OptNetLayer
+    from lqp_py_tpu_torch import GenQPLayer
+    assert tnn.GenQPModule is GenQPLayer
+    assert isinstance(tnn.GenQPModule(), torch.nn.Module)
     layer = tnn.OptNetModule(OptNetConfig(tol=1e-6))
     assert isinstance(layer, torch.nn.Module) and layer.config.tol == 1e-6
     jd = jcreate(5, 2, seed=1, dtype=jnp.float64)
@@ -267,6 +321,7 @@ def test_data_entry_points_default_to_the_card():
            convert.solution_from_numpy, convert.linear_qp_from_numpy,
            convert.linear_box_qp_from_flax, convert.gen_problem_from_numpy,
            convert.qp_solution_from_numpy, convert.ip_factors_from_numpy,
+           convert.gen_prepared_from_numpy,
            ttrain.init_params,
            tnn.LinearBoxQP.__init__]
     for fn in fns:
