@@ -54,7 +54,18 @@ an Anderson solve, with every factorization's leaves counted; phase 20 the
 conic backward at n=300 (its dense self-dual system under the 1 GiB
 budget, warnings as errors) against float64 and against 'kkt'; phase 21
 phase 11's trainer checkpointed after five steps, restored into a fresh
-state and resumed, bitwise the uninterrupted run.  Every phase raises on
+state and resumed, bitwise the uninterrupted run.  Phases 22-23 drive the
+distribution layer (``lqp_py_tpu_torch.parallel``) on phase 5's requests,
+in worker processes this script starts with ``--worker`` through
+``parallel/launch.py``: phase 22 the batch-sharded (dp) solve in lock step
+on two ranks of one card under gloo (chosen explicitly: NCCL refuses two
+ranks on one device), its shard_map variant and ``boxqp_sharded``'s d/dp,
+and the same dp solve in a one-rank world on the card's default backend
+(NCCL); phase 23 the column-sharded (tp=2) box solve, with each rank's
+leaf launches per factorization, the solve on the rank's own blocks with
+the whole problem kept on the host, and the card memory each rank holds
+(its blocks, the solve's temporaries, its peak over all it holds) against
+a tp=1 solve.  A failed rank fails the phase.  Every phase raises on
 failure.  The line
 before the last lists each kernel with its launches on its paths, its
 error against the plain version, its time beside the plain version's, its
@@ -72,6 +83,7 @@ import sys
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -103,6 +115,9 @@ N_X2, N_FEAT2, N_BATCH2, MINI2, LR2, STEPS2 = 500, 5, 128, 32, 5e-4, 10
 F32_FLOPS, TF32X3_FLOPS, HBM_BYTES_S = 67e12, 495e12 / 3, 3.35e12
 # The card the script drives; the CPU rehearsal test sets "cpu".
 DEVICE = "cuda"
+# Phases 22-23: the seed of boxqp_sharded's gradient weights, and each
+# world's time limit (start-up included).
+W_SEED, PAR_TIMEOUT_S = 7, 300
 
 
 def _check(cond, msg):
@@ -336,6 +351,7 @@ def main():
           f"{sol64.iterations} iterations, {ms64:.2f} ms; "
           f"max|x_f32 - x_f64| {dx64:.3e} (<= 1e-3)")
     x64_5 = sol64.x
+    x5, it5 = direct0.x, direct0.iterations     # phases 22-23 hold to these
     del sol64, d64
 
     # 6. Serving: one preparation, four requests with p drifting by 1% per
@@ -1580,7 +1596,7 @@ def main():
           f"iterations ({aa_nf19} factorizations), max|x - x_f64| "
           f"{dx_aa19:.3e} (<= 1e-3), {aa19_ms:.2f} ms")
     del sol19, pol19, aa19, prep19, prev, x19, res19, args19, G19, h19
-    del data0, x64_5
+    del data0
 
     # 20. The conic backward on the card: phase 19's construction at
     # n=N_CONIC, where the dense self-dual system (B, N, N) with
@@ -1705,6 +1721,9 @@ def main():
           f"loop; loss per step "
           f"[{', '.join(f'{v:.5f}' for v in full21.losses.tolist())}]")
 
+    # 22-23. The parallel layer, in worlds of worker processes on this card.
+    par = _parallel_phases(dev, x5, it5, x64_5)
+
     print(json.dumps({"kernels": [{
         "name": "sweep_spd_inverse", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/sweep_spd_inverse.cu",
@@ -1716,7 +1735,10 @@ def main():
         "launches_box_ip": launches16, "launches_optnet": launches17,
         "launches_optnet_schur": launches18, "launches_genqp": launches19,
         "launches_genqp_bwd": bwd_leaves19,
-        "launches_genqp_polish": pol_leaves19, "err_ip_vs_f64": err16_k,
+        "launches_genqp_polish": pol_leaves19,
+        "launches_dp": par["launches_dp"], "launches_tp": par["launches_tp"],
+        "launches_tp_per_rank": par["launches_tp_per_rank"],
+        "err_ip_vs_f64": err16_k,
         "plain_err_ip_vs_f64": err16_p,
         "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
         "plain_ms": plain_ms, "bound_ms": leaf_bound[0],
@@ -1755,5 +1777,287 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def _parallel_phases(dev, x5, it5, x64_5):
+    """Phases 22-23: ``lqp_py_tpu_torch.parallel`` on phase 5's requests.
+
+    A world of two ranks on this one card with ``backend="gloo"`` (NCCL
+    refuses two ranks on one device; gloo stages CUDA tensors through the
+    host, so its times measure that, not NVLink) runs the lock-step dp
+    solve, the shard_map variant, ``boxqp_sharded``'s d/dp and the tp=2
+    solve (on the whole problem, then on the rank's blocks with the whole
+    problem on the host) with its memory; a one-rank world on the default
+    card backend (NCCL) runs the dp solve and the tp=1 solve the memory
+    gate compares with.  The ranks are this script with ``--worker``
+    (``_parallel_worker``), started by ``parallel/launch.py``; a failed
+    rank fails the phase."""
+    from lqp_py_tpu_torch import BoxQPConfig, boxqp
+    from lqp_py_tpu_torch.parallel import tp as tpm
+    from lqp_py_tpu_torch.parallel.launch import launch
+    from lqp_py_tpu_torch.utils.generators import create_qp_data
+
+    cfg = BoxQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False)
+    data = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
+    w = torch.randn((B, N), generator=torch.Generator(device=dev).manual_seed(
+        W_SEED), device=dev)
+    p1 = data.p.clone().requires_grad_()
+    x1 = boxqp(data.Q, p1, data.A, data.b, data.lb, data.ub, config=cfg)
+    g1 = torch.autograd.grad((w * x1).sum(), p1)[0]
+    spec = {"device": DEVICE, "N": N, "B": B, "TOL": TOL,
+            "q_sum": float(data.Q.double().sum()),
+            "p_sum": float(data.p.double().sum())}
+    del data, x1, p1
+    with tempfile.TemporaryDirectory() as tmp:
+        spec["out"] = tmp
+        with open(f"{tmp}/spec.json", "w") as f:
+            json.dump(spec, f)
+        ranks = {}
+        for world, nproc in (("gloo", 2), ("nccl", 1)):
+            t0 = time.perf_counter()
+            launch([sys.executable, __file__, "--worker", f"{tmp}/spec.json",
+                    world], nproc, timeout_s=PAR_TIMEOUT_S,
+                   cwd=str(Path(__file__).resolve().parent))
+            ranks[world] = [(json.loads(Path(f"{tmp}/{world}{r}.json")
+                                        .read_text()),
+                             dict(np.load(f"{tmp}/{world}{r}.npz")))
+                            for r in range(nproc)]
+            ranks[world + "_s"] = time.perf_counter() - t0
+    gloo, nccl = ranks["gloo"], ranks["nccl"]
+
+    def cat(key, world=gloo):
+        return torch.from_numpy(np.concatenate([a[key] for _, a in world]))
+
+    # 22. dp.
+    for info, _ in gloo + nccl:
+        _check(info["dp_it"] == it5, f"dp iterations {info['dp_it']} != "
+               f"phase 5's {it5}")
+        _check(info["dp_launches"] > 0, "the dp path launched no leaf")
+    conv = cat("dp_converged")
+    _check(bool(conv.all()), f"dp: {int(conv.sum())}/{B} converged")
+    dx22 = (cat("dp_x").to(dev) - x5).abs().max().item()
+    _check(dx22 <= 1e-5, f"dp: max|x - x_phase5| = {dx22:.3e}")
+    dx22n = (cat("dp_x", nccl).to(dev) - x5).abs().max().item()
+    _check(dx22n <= 1e-5, f"one-rank {nccl[0][0]['backend']}: max|x - "
+           f"x_phase5| = {dx22n:.3e}")
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    _check(nccl[0][0]["backend"] == backend,
+           f"the one-rank world runs {nccl[0][0]['backend']}, not {backend}")
+    _check(bool(cat("sm_converged").all()), "shard_map: not all converged")
+    dsm22 = (cat("sm_x").to(dev).double() - x64_5).abs().max().item()
+    _check(dsm22 <= 1e-3, f"shard_map: max|x - x_f64| = {dsm22:.3e}")
+    dg22 = ((cat("grad").to(dev) - g1).abs().max()
+            / g1.abs().max()).item()
+    _check(dg22 <= 1e-4, f"boxqp_sharded d/dp relative error {dg22:.3e}")
+    dp_ms = [i["dp_ms"] for i, _ in gloo]
+    print(f"phase 22 dp (lqp_py_tpu_torch.parallel, phase 5's B={B}, n={N}, "
+          f"f32 requests): two ranks on one card, backend "
+          f"{gloo[0][0]['backend']} (chosen; it stages through the host): "
+          f"{B}/{B} converged in {gloo[0][0]['dp_it']} iterations (phase 5's "
+          f"{it5}), max|x - x_phase5| {dx22:.3e} (<= 1e-5), "
+          f"{[i['dp_collectives'] for i, _ in gloo]} flag all-reduces, "
+          f"request {max(dp_ms):.2f} ms (ranks "
+          f"{[round(v, 2) for v in dp_ms]}), leaf launches "
+          f"{[i['dp_launches'] for i, _ in gloo]}; shard_map iterations per "
+          f"rank {[int(a['sm_it'][0]) for _, a in gloo]}, max|x - x_f64| "
+          f"{dsm22:.3e} (<= 1e-3); boxqp_sharded d/dp vs the one-process "
+          f"layer {dg22:.3e} relative (<= 1e-4); one-rank world on "
+          f"{nccl[0][0]['backend']} (the card's default): "
+          f"{nccl[0][0]['dp_it']} iterations, max|x - x_phase5| "
+          f"{dx22n:.3e}, request {nccl[0][0]['dp_ms']:.2f} ms; worlds "
+          f"{ranks['gloo_s']:.1f} s and {ranks['nccl_s']:.1f} s with "
+          f"start-up")
+
+    # 23. tp=2.
+    L, w_piv = tpm.column_blocks(N, 2)
+    info0, arr0 = gloo[0]
+    for info, arr in gloo:
+        _check(bool(arr["tp_converged"].all()),
+               f"tp: {int(arr['tp_converged'].sum())}/{B} converged")
+        _check(np.array_equal(arr["tp_x"], arr0["tp_x"]),
+               "tp: the ranks' replicated x differ")
+        _check(info["tp_factorizations"] == info0["tp_factorizations"] >= 1
+               and info["tp_launches"]
+               == info["tp_factorizations"] * L // w_piv,
+               f"tp: {info['tp_launches']} leaves for "
+               f"{info['tp_factorizations']} factorizations of "
+               f"{L // w_piv} panels")
+    dx23 = (torch.from_numpy(arr0["tp_x"]).to(dev).double()
+            - x64_5).abs().max().item()
+    _check(dx23 <= 1e-3, f"tp: max|x - x_f64| = {dx23:.3e}")
+    _check(np.array_equal(arr0["tp_local_x"], arr0["tp_x"]),
+           "tp: solve_box_qp_tp_local on the rank's blocks differs from "
+           "solve_box_qp_tp")
+    one = nccl[0][0]["tp1"]
+    mem = {k: max(i["tp"][k] for i, _ in gloo) for k in one}
+    args_r = mem["args"] / one["args"]
+    peak_r = mem["peak"] / one["peak"]
+    _check(args_r <= 0.55, f"tp=2 argument bytes {args_r:.3f}x tp=1's")
+    _check(peak_r <= 0.7, f"tp=2 peak {peak_r:.3f}x tp=1's")
+    tp_ms = [i["tp_ms"] for i, _ in gloo]
+    print(f"phase 23 tp=2 ({B}, {N}) f32, gloo on one card: {B}/{B} "
+          f"converged in {info0['tp_it']} iterations, max|x - x_f64| "
+          f"{dx23:.3e} (<= 1e-3), request {max(tp_ms):.2f} ms (ranks "
+          f"{[round(v, 2) for v in tp_ms]}); "
+          f"{info0['tp_factorizations']} factorizations x "
+          f"{L // w_piv} pivot panels of {w_piv} per rank: leaf launches "
+          f"{[i['tp_launches'] for i, _ in gloo]}; warm request on the "
+          f"rank's blocks (solve_box_qp_tp_local, x bitwise the whole "
+          f"problem's) "
+          f"{max(i['tp_warm_ms'] for i, _ in gloo):.2f} ms; one "
+          f"factorization (first, warm) "
+          f"{[round(v, 2) for v in info0['fact_ms']]} ms; all-reduce of the "
+          f"loop's ({B}, {2 * L}) {info0['allreduce_ms']:.3f} ms, panel "
+          f"broadcast ({B}, {2 * L}, {w_piv}) {info0['bcast_ms']:.3f} ms, "
+          f"flag all-reduce and read {info0['flag_ms']:.3f} ms; the whole "
+          f"problem on the host, per rank on the card "
+          f"{mem['args'] / 2**20:.1f} MiB of blocks ({args_r:.3f}x tp=1's "
+          f"{one['args'] / 2**20:.1f}, <= 0.55), "
+          f"{mem['temp'] / 2**20:.1f} MiB above them (tp=1 "
+          f"{one['temp'] / 2**20:.1f}), peak of all the rank holds "
+          f"{mem['peak'] / 2**20:.1f} MiB ({peak_r:.3f}x tp=1's "
+          f"{one['peak'] / 2**20:.1f}, <= 0.7; "
+          f"{mem['resident'] / 2**20:.1f} and "
+          f"{one['resident'] / 2**20:.1f} MiB held before the blocks)")
+    return {"launches_dp": sum(i["dp_launches"] for i, _ in gloo),
+            "launches_tp": sum(i["tp_launches"] for i, _ in gloo),
+            "launches_tp_per_rank": [i["tp_launches"] for i, _ in gloo]}
+
+
+def _parallel_worker(spec_path, world):
+    """One rank of phase 22-23's worlds (``_parallel_phases``): writes its
+    numbers to ``<world><rank>.json`` and its arrays to ``.npz``."""
+    import torch.distributed as dist
+
+    from lqp_py_tpu_torch import BoxQPConfig
+    from lqp_py_tpu_torch.ops import collective
+    from lqp_py_tpu_torch.ops import linalg as lin
+    from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+    from lqp_py_tpu_torch.parallel import (boxqp_sharded,
+                                           initialize_distributed,
+                                           lowered_tp_memory, make_mesh,
+                                           shard_batch, shard_problem_tp,
+                                           solve_box_qp_shard_map,
+                                           solve_box_qp_sharded,
+                                           solve_box_qp_tp,
+                                           solve_box_qp_tp_local)
+    from lqp_py_tpu_torch.parallel import tp as tpm
+    from lqp_py_tpu_torch.utils.generators import create_qp_data
+
+    spec = json.loads(Path(spec_path).read_text())
+    dev = torch.device(spec["device"], 0)
+    if dev.type == "cpu":
+        # The CPU rehearsal (tests/test_torch_chip_smoke.py): the leaf's
+        # plain version stands in for the kernel and counts as a launch.
+        def counted(H):
+            sk.LAUNCHES += 1
+            return sk.sweep_spd_inverse_ref(H)
+        lin.sweep_spd_inverse = counted
+
+    def wall(fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def footprint(mesh_tp, host):
+        """The tp solve's per-rank memory with the whole problem on the
+        host and only the rank's blocks on the card: its arguments, its
+        temporaries, and the card's peak over the solve counting every
+        tensor the rank holds there (``resident`` before it)."""
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        args, temp = lowered_tp_memory(mesh_tp, *host, config=cfg,
+                                       device=dev)
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else args + temp)
+        return {"args": args, "temp": temp, "peak": peak, "resident": held}
+
+    initialize_distributed(backend="gloo" if world == "gloo" else None)
+    mesh = make_mesh()                   # a world of one rank for "nccl"
+    mesh_tp = make_mesh((1, dist.get_world_size()), ("dp", "tp"))
+    rank, nproc = dist.get_rank(), dist.get_world_size()
+    n, b = spec["N"], spec["B"]
+    data = create_qp_data(n, b, seed=0, dtype=torch.float32, device=dev)
+    _check(float(data.Q.double().sum()) == spec["q_sum"]
+           and float(data.p.double().sum()) == spec["p_sum"],
+           "the worker's requests differ from phase 5's")
+    cfg = BoxQPConfig(eps_abs=spec["TOL"], eps_rel=spec["TOL"],
+                      symmetrize=False)
+    info = {"backend": dist.get_backend()}
+    arrays = {}
+    solve_box_qp_sharded(mesh, *data, config=cfg)            # warm-up
+    sk.LAUNCHES, c0 = 0, collective.COLLECTIVES
+    sol, info["dp_ms"] = wall(
+        lambda: solve_box_qp_sharded(mesh, *data, config=cfg))
+    info.update(dp_it=sol.iterations, dp_launches=sk.LAUNCHES,
+                dp_collectives=collective.COLLECTIVES - c0)
+    arrays.update(dp_x=sol.x, dp_converged=sol.converged)
+    if world == "nccl":
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)                 # a collective of the backend
+        _check(one.item() == 1.0, "one-rank all-reduce")
+        arrays = {k: v.cpu() for k, v in arrays.items()}
+        host = tuple(None if x is None else x.cpu() for x in data)
+        del data, sol, one
+        info["tp1"] = footprint(mesh_tp, host)
+    else:
+        sm = solve_box_qp_shard_map(mesh, *data, config=cfg)
+        arrays.update(sm_x=sm.x, sm_it=sm.iterations,
+                      sm_converged=sm.converged)
+        w = torch.randn((b, n), generator=torch.Generator(
+            device=dev).manual_seed(W_SEED), device=dev)
+        p = data.p.clone().requires_grad_()
+        x = boxqp_sharded(mesh, data.Q, p, data.A, data.b, data.lb,
+                          data.ub, config=cfg)
+        arrays["grad"] = shard_batch(torch.autograd.grad(
+            (shard_batch(w, mesh) * x).sum(), p)[0], mesh)
+        tpm.FACTORIZATIONS, sk.LAUNCHES = 0, 0
+        sol, info["tp_ms"] = wall(
+            lambda: solve_box_qp_tp(mesh_tp, *data, config=cfg))
+        info.update(tp_it=sol.iterations, tp_launches=sk.LAUNCHES,
+                    tp_factorizations=tpm.FACTORIZATIONS)
+        arrays.update(tp_x=sol.x, tp_converged=sol.converged)
+        # From here the whole problem stays on the host: the card holds
+        # the rank's blocks only (``shard_problem_tp(..., device=)``).
+        arrays = {k: v.cpu() for k, v in arrays.items()}
+        host = tuple(None if v is None else v.cpu() for v in data)
+        del data, sol, sm, x, p, w
+        info["tp"] = footprint(mesh_tp, host)
+        local = shard_problem_tp(mesh_tp, *host, device=dev)
+        sol, info["tp_warm_ms"] = wall(
+            lambda: solve_box_qp_tp_local(mesh_tp, *local, config=cfg))
+        arrays["tp_local_x"] = sol.x.cpu()
+        # The pieces: one factorization of an operand of the solve's shape
+        # (Q + I, unscaled), and each collective alone.
+        tp = tpm._TP(mesh_tp, "tp", n)
+        H = tpm._scaled_block(local[0], torch.ones((b, n), device=dev),
+                              torch.ones(b, device=dev), tp)
+        info["fact_ms"] = [wall(lambda: tpm.column_spd_inverse(
+            H, tp, equilibrate=False))[1] for _ in range(2)]
+        del H
+        y = torch.zeros((b, tp.N), device=dev)
+        panel = torch.zeros((b, tp.N, tp.w), device=dev)
+        flags = torch.zeros(4, device=dev)
+        with collective.batch_group(mesh.get_group("dp")):
+            for name, fn in (("allreduce_ms", lambda: tp.sum(y)),
+                             ("bcast_ms", lambda: tp.bcast(panel, 0)),
+                             ("flag_ms", lambda: collective.batch_max(
+                                 flags).tolist())):
+                info[name] = statistics.mean(wall(fn)[1]
+                                             for _ in range(10))
+    out = f"{spec['out']}/{world}{rank}"
+    Path(out + ".json").write_text(json.dumps(info))
+    np.savez(out + ".npz", **{k: (v.detach().cpu() if torch.is_tensor(v)
+                                  else torch.as_tensor(v)).numpy()
+                              for k, v in arrays.items()})
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        _parallel_worker(*sys.argv[2:4])
+    else:
+        main()

@@ -28,6 +28,7 @@ from lqp_py_tpu_torch.config import OptNetConfig
 from lqp_py_tpu_torch.models import box_qp_grad as bgrads
 from lqp_py_tpu_torch.models._polish import box_penalty_polish
 from lqp_py_tpu_torch.models.optnet import _d_cap, _inf_norm, _step_length
+from lqp_py_tpu_torch.ops import collective
 from lqp_py_tpu_torch.ops.linalg import _mv, _schur_pieces, spd_inverse_fast
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import BoxQPSolution, as_vector, like_layout
@@ -193,7 +194,7 @@ def solve_box_qp_ip(Q, p, A=None, b=None, lb=None, ub=None,
     while it < config.max_iters:
         st = body(st)
         it += 1
-        if bool(st.converged.all()):
+        if not bool(collective.batch_any((~st.converged).any())):
             break
 
     x_fin, y_fin = st.x, st.y

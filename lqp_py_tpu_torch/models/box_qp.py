@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from lqp_py_tpu_torch.config import BoxQPConfig
 from lqp_py_tpu_torch.models._polish import box_penalty_polish
-from lqp_py_tpu_torch.ops import anderson
+from lqp_py_tpu_torch.ops import anderson, collective
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops import scaling as sca
 from lqp_py_tpu_torch.ops.kernels.admm_step import fused_admm_step
@@ -52,6 +52,13 @@ _ZERO_CLAMP = 1e-16
 
 def _inf_norm(v):
     return v.abs().amax(dim=-1)
+
+
+def _any_finite(lb, ub):
+    """Whether any bound anywhere in the batch is finite (a 0-d bool
+    tensor); global over the batch group of ``ops/collective.py``."""
+    return collective.batch_any((lb.amax() > -math.inf)
+                                | (ub.amin() < math.inf))
 
 
 def _canonical(Q, p, A, b, lb, ub, config):
@@ -95,7 +102,7 @@ def _prep(Q, p, A, b, lb, ub, config, pad: int = 0):
         rho = torch.full((B,), float(config.rho), dtype=p.dtype,
                          device=p.device)
     # With no finite bound anywhere in the batch rho is forced to 0.
-    any_ineq = (lb.amax() > -math.inf) | (ub.amin() < math.inf)
+    any_ineq = _any_finite(lb, ub)
     return sp, p_norm, torch.where(any_ineq, rho, torch.zeros_like(rho))
 
 
@@ -111,7 +118,7 @@ def _prep_h(Q, p, A, b, lb, ub, config, pad: int = 0):
     p_norm = _inf_norm(p)
     # With no finite bound anywhere in the batch the box projection is the
     # identity and rho is forced to 0: ADMM then converges in one step.
-    any_ineq = (lb.amax() > -math.inf) | (ub.amin() < math.inf)
+    any_ineq = _any_finite(lb, ub)
 
     def rho_fn(D, q_fro):
         if config.rho is None:
@@ -273,55 +280,97 @@ def solve_box_qp_prepared(prep: BoxQPPrepared, p,
                          warm_start, H0=prep.H)
 
 
+class _KKTOperator:
+    """The ADMM loop's access to its reduced KKT operator: factorize the
+    operand ``H0 = D Q D + rho0 I`` shifted to another rho, apply the
+    factored inverse in the x-update, and multiply by ``A^T``.  This one
+    holds the whole lane-padded operand; ``parallel/tp.py`` holds a column
+    block of it and adds the collectives.
+
+    ``H0`` (B, n_pad, n_pad) and ``As`` (B, m, n_pad) with zero pad
+    columns; ``n`` is the unpadded size."""
+
+    def __init__(self, H0, As, bs, rho0, n, mode, equilibrate, use_pallas):
+        self.H0, self.As, self.bs, self.rho0 = H0, As, bs, rho0
+        self.n, self.n_pad = n, H0.shape[-1]
+        self.mode, self.equilibrate = mode, equilibrate
+        self.use_pallas = use_pallas
+
+    def factorize(self, rho=None) -> lin.KKTFactors:
+        """Factors of ``H0`` shifted to ``rho`` (``None``: ``H0`` itself).
+        Only the leading-n diagonal shifts: the pad block's identity stays
+        put, so a downward rho move cannot push its pivots toward zero."""
+        H = self.H0
+        if rho is not None:
+            H = H.clone()
+            H.diagonal(dim1=-2, dim2=-1)[:, :self.n] += (
+                rho - self.rho0)[:, None]
+        return lin.factorize_kkt(H, None, self.As, mode=self.mode,
+                                 equilibrate=self.equilibrate,
+                                 materialize_p=self.use_pallas)
+
+    def step_constant(self, f: lin.KKTFactors):
+        """``q`` of the x-update ``x = P r + q``."""
+        op = lin.kkt_step_operator(f, self.bs)
+        return (self.rho0.new_zeros((self.rho0.shape[0], self.n_pad))
+                if op is None else op[1])
+
+    def x_update(self, f: lin.KKTFactors, q, r):
+        """x = P r + q where P is materialized, else x = Hinv r - WS (W^T r)
+        + q: one dense GEMV and two rank-n_eq corrections.  Cholesky mode
+        takes the triangular solves of kkt_apply."""
+        if f.P is not None:
+            return lin._mv(f.P, r) + q
+        if f.Hinv is None:
+            return lin.kkt_apply(f, r, self.bs)[0]
+        y = lin._mv(f.Hinv, r)
+        if f.W is not None:
+            y = y - lin._mv(f.WS, lin._mv(f.W.mT, r))
+        return y + q
+
+    def at_mv(self, *vs):
+        """``A^T v`` (B, n) for each (B, m) ``v``."""
+        At = self.As[:, :, :self.n].mT
+        return tuple(lin._mv(At, v) for v in vs)
+
+
 def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
-                  factors_in, warm_start, H0) -> BoxQPSolution:
+                  factors_in, warm_start, H0, kkt=None) -> BoxQPSolution:
     """The ADMM loop on an already-scaled problem.
 
     ``H0`` is the lane-padded factorization operand ``D Q D + rho0 I``;
     ``As`` arrives with zero pad columns.  ``factors_in`` are cached
     factors of ``H0`` (prepared solve) or None (factorize here).  A
     preparation made at another alignment than this solve's is resized:
-    the identity pad is extended or sliced off."""
+    the identity pad is extended or sliced off.  ``kkt`` replaces the
+    whole-operator ``_KKTOperator`` (``parallel/tp.py``'s column block,
+    which takes neither the early-exit step, nor polish, nor Anderson)."""
     B, n = ps.shape
     dtype, device = ps.dtype, ps.device
     cs = config.resolved_check_interval(n)
     adaptive_interval = config.resolved_adaptive_interval(n)
     max_iters = int(config.max_iters)
     mode = _mode(config)
-    n_pad, use_pallas = _padded_n(config, n, mode)
+    if kkt is None:
+        n_pad, use_pallas = _padded_n(config, n, mode)
+        built = H0.shape[-1]
+        if built < n_pad:
+            H0 = _pad_identity(H0, n_pad - built)
+            As = None if As is None else F.pad(As, (0, n_pad - built))
+        elif built > n_pad:
+            H0 = H0[:, :n_pad, :n_pad]
+            As = None if As is None else As[:, :, :n_pad]
+        kkt = _KKTOperator(H0, As, bs, rho0, n, mode,
+                           equilibrate=not config.scale,
+                           use_pallas=use_pallas)
+    n_pad, use_pallas = kkt.n_pad, kkt.use_pallas
     pad = n_pad - n
-    built = H0.shape[-1]
-    if built < n_pad:
-        H0 = _pad_identity(H0, n_pad - built)
-        As = None if As is None else F.pad(As, (0, n_pad - built))
-    elif built > n_pad:
-        H0 = H0[:, :n_pad, :n_pad]
-        As = None if As is None else As[:, :, :n_pad]
     ps_p = F.pad(ps, (0, pad))
     lbs_p = F.pad(lbs, (0, pad), value=-math.inf)
     ubs_p = F.pad(ubs, (0, pad), value=math.inf)
-    As_u = None if As is None else As[:, :, :n]
-    equilibrate = not config.scale
-
-    def _q_of(f):
-        op = lin.kkt_step_operator(f, bs)
-        return (torch.zeros((B, n_pad), dtype=dtype, device=device)
-                if op is None else op[1])
-
-    def factorize(rho):
-        # Shift only the leading-n diagonal: the pad block's identity stays
-        # put, so a downward rho move cannot push its pivots toward zero.
-        Hr = H0.clone()
-        Hr.diagonal(dim1=-2, dim2=-1)[:, :n] += (rho - rho0)[:, None]
-        f = lin.factorize_kkt(Hr, None, As, mode=mode,
-                              equilibrate=equilibrate,
-                              materialize_p=use_pallas)
-        return f, _q_of(f)
 
     if factors_in is None:
-        factors = lin.factorize_kkt(H0, None, As, mode=mode,
-                                    equilibrate=equilibrate,
-                                    materialize_p=use_pallas)
+        factors = kkt.factorize()
     else:
         factors = factors_in
         if use_pallas and factors.P is None:
@@ -334,29 +383,15 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
                      if a is not None)
         if dense.shape[-1] != n_pad:
             factors = _pad_factors(factors, n_pad - dense.shape[-1])
-    q = _q_of(factors)
+    q = kkt.step_constant(factors)
 
     # Over-relaxation collapses to alpha = 1 when no bound is finite (rho
     # is 0 there and the plain iteration converges in one step).
     has_alpha = float(config.alpha) != 1.0
-    any_finite = (lbs.amax() > -math.inf) | (ubs.amin() < math.inf)
-    alpha_t = torch.where(any_finite,
+    alpha_t = torch.where(_any_finite(lbs, ubs),
                           torch.tensor(float(config.alpha), dtype=dtype,
                                        device=device),
                           torch.tensor(1.0, dtype=dtype, device=device))
-
-    def x_update(f, q, r):
-        # x = P r + q where P is materialized, else x = Hinv r - WS (W^T r)
-        # + q: one dense GEMV and two rank-n_eq corrections.  Cholesky mode
-        # takes the triangular solves of kkt_apply.
-        if f.P is not None:
-            return lin._mv(f.P, r) + q
-        if f.Hinv is None:
-            return lin.kkt_apply(f, r, bs)[0]
-        y = lin._mv(f.Hinv, r)
-        if f.W is not None:
-            y = y - lin._mv(f.WS, lin._mv(f.W.mT, r))
-        return y + q
 
     if warm_start is not None:
         # Map the previous (unscaled) iterates into the current scaling.
@@ -406,14 +441,17 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         den = torch.clamp(dual_error / told_norm, min=_ZERO_CLAMP)
         return torch.sqrt(num / den)
 
-    def flags():
-        """(every element optimal or infeasible, some rho pending): the one
+    def flags(maxima=()):
+        """(every element optimal or infeasible, some rho pending), and the
+        batch-wide maximum of each of ``maxima``: the one collective and
         device-to-host read of a residual check."""
-        done, pending = torch.stack(
-            [torch.all(is_optimal | pinf), torch.any(rho_pending)]).tolist()
-        return done, pending
+        g = collective.batch_max(torch.stack(
+            [(~(is_optimal | pinf)).any().to(dtype),
+             rho_pending.any().to(dtype), *maxima]))
+        busy, pending = (g[:2] > 0).tolist()
+        return not busy, pending, g[2:]
 
-    done, pending = flags()
+    done, pending, _ = flags()
     while True:
         # Inner loop: residual-check blocks until every element is done,
         # the iteration cap is hit, or some element's rho must update.
@@ -443,7 +481,7 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
             else:
                 for i in range(n_inner):
                     r = -ps_p + rho_c * (z - u)
-                    x = x_update(factors, q, r)
+                    x = kkt.x_update(factors, q, r)
                     z_prev = z
                     xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
                     z_new = torch.clamp(xh + u, lbs_p, ubs_p)
@@ -464,11 +502,17 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
                 last_r = r
             xs_c, zs_c, us_c, zp_c = (v[:, :n] for v in (x, z, u, z_prev))
 
-            # Equality duals implied by the current factored solve.
-            nu_s = None
+            # Equality duals implied by the current factored solve, and
+            # A^T of them and of their change since the last check.
+            nu_s = dnu = None
             if As is not None:
                 nu_s = lin._mv(factors.Sinv, lin._mv(factors.W.mT, last_r)
                                - bs)
+                if config.detect_infeasibility:
+                    dnu = nu_s - nu_chk
+                    at_nu, at_dnu = kkt.at_mv(nu_s, dnu)
+                else:
+                    at_nu, = kkt.at_mv(nu_s)
 
             # OSQP-style stopping test on unscaled residuals.
             s_dual = rho_c * (zs_c - zp_c)
@@ -481,7 +525,7 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
             # a (B, n, n) GEMV; it only enters a tolerance normalizer.
             Qx = last_r[:, :n] - rho_c * xs_c
             if As is not None:
-                Qx = Qx - lin._mv(As_u.mT, nu_s)
+                Qx = Qx - at_nu
             Qx_norm = _inf_norm(Qx / D)
 
             tolp_norm = torch.clamp(torch.maximum(x_norm, z_norm),
@@ -502,8 +546,7 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
                 du = us_c - u_chk_prev
                 dlam_us = rho_c * du / D
                 if As is not None:
-                    dnu = nu_s - nu_chk
-                    cert = (lin._mv(As_u.mT, dnu) + rho_c * du) / D
+                    cert = (at_dnu + rho_c * du) / D
                     dual_scale = torch.maximum(_inf_norm(dlam_us),
                                                _inf_norm(dnu * E))
                     support = (bs * dnu).sum(dim=-1)
@@ -529,12 +572,6 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
                 pinf = pinf | (pinf_el & ~is_optimal)
 
             it += n_inner
-            if K:
-                trace[n_chk % K] = torch.stack([
-                    torch.tensor(float(it), dtype=dtype, device=device),
-                    primal_error.amax(), dual_error.amax()])
-                n_chk += 1
-
             if config.adaptive_rho:
                 # Per-element gate: an element's rho moves only when its own
                 # primal/dual ratio is outside the band, inside the window.
@@ -553,7 +590,12 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
             if config.verbose:
                 print(f"iter={it}  primal={primal_error.amax().item():.3e}"
                       f"  dual={dual_error.amax().item():.3e}")
-            done, pending = flags()
+            done, pending, maxima = flags(
+                (primal_error.amax(), dual_error.amax()) if K else ())
+            if K:
+                trace[n_chk % K, 0] = float(it)
+                trace[n_chk % K, 1:] = maxima
+                n_chk += 1
 
         if not config.adaptive_rho or it >= max_iters or done:
             break
@@ -561,7 +603,8 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         # pending elements' rho and refactorize.
         rho_new = torch.where(rho_pending, rho * rho_ratio(), rho)
         rho = torch.clamp(rho_new, config.rho_min, config.rho_max)
-        factors, q = factorize(rho)
+        factors = kkt.factorize(rho)
+        q = kkt.step_constant(factors)
         if m_aa:
             # A rho update changes the fixed-point map: reset the updated
             # elements' history.
@@ -584,7 +627,8 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
     polished = None
     if config.polish:
         xs, zs, lam_lo_s, lam_hi_s, nus, polished = _polish(
-            config, H0, rho0, ps, As_u, bs, lbs, ubs, E, xs, zs, us,
+            config, kkt.H0, rho0, ps, None if As is None else As[:, :, :n],
+            bs, lbs, ubs, E, xs, zs, us,
             lam_lo_s, lam_hi_s, nus, pinf, m_aa)
 
     trace_out = None
@@ -692,8 +736,7 @@ def solve_box_qp_unrolled(Q, p, A=None, b=None, lb=None, ub=None,
     B, n = ps.shape
 
     has_alpha = float(config.alpha) != 1.0
-    any_finite = (lbs.amax() > -math.inf) | (ubs.amin() < math.inf)
-    alpha_t = torch.where(any_finite,
+    alpha_t = torch.where(_any_finite(lbs, ubs),
                           torch.tensor(float(config.alpha), dtype=ps.dtype,
                                        device=ps.device),
                           torch.tensor(1.0, dtype=ps.dtype,
@@ -739,7 +782,8 @@ def solve_box_qp_unrolled(Q, p, A=None, b=None, lb=None, ub=None,
             told = eps_abs + eps_rel * torch.clamp(
                 torch.maximum(torch.maximum(y_norm, Qx_norm), p_norm_d),
                 min=_ZERO_CLAMP)
-            done = bool(((primal_error < tolp) & (dual_error < told)).all())
-        if done:
+            busy = collective.batch_any(
+                (~((primal_error < tolp) & (dual_error < told))).any())
+        if not bool(busy):
             break
     return D * x

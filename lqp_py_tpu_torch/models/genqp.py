@@ -45,7 +45,7 @@ from lqp_py_tpu_torch.models import conic_grad
 from lqp_py_tpu_torch.models._polish import (al_lam_threshold,
                                              gen_penalty_polish)
 from lqp_py_tpu_torch.models._stateful import StatefulQP
-from lqp_py_tpu_torch.ops import anderson
+from lqp_py_tpu_torch.ops import anderson, collective
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops.linalg import _mv
 from lqp_py_tpu_torch.ops.precision import solver_precision
@@ -346,7 +346,7 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
             pinf = pinf | (pinf_el & ~is_optimal)
         u_chk = u
 
-        finished = torch.all(is_optimal | pinf)
+        busy = (~(is_optimal | pinf)).any()
         if config.adaptive_rho:
             # The next body's rho test, from this check's residuals.  Only
             # elements not yet converged-enough move.
@@ -356,15 +356,22 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
             den = torch.clamp(dual_error / told_norm, min=_ZERO_CLAMP)
             ratio = torch.sqrt(num / den)
             outside = (ratio > tol_r) | (ratio < 1.0 / tol_r)
+            # The check's one collective over the batch group and one
+            # device-to-host read.
+            busy, pend, any_out, any_upd = collective.batch_any(
+                torch.stack([busy, (do_rho_update & outside).any(),
+                             outside.any(), do_rho_update.any()]))
             if not config.adaptive_rho_per_element:
                 # The reference's rescale-all: any element out of band
-                # moves every element still above its threshold.
-                outside = outside.any().expand_as(outside)
+                # (anywhere in the batch) moves every element still above
+                # its threshold.
+                outside = any_out.expand_as(outside)
+                pend = any_out & any_upd
             upd_mask = do_rho_update & outside
-            # The check's one device-to-host read.
-            done, pending = torch.stack([finished, upd_mask.any()]).tolist()
+            busy, pending = torch.stack([busy, pend]).tolist()
+            done = not busy
         else:
-            done = bool(finished)
+            done = not bool(collective.batch_any(busy))
 
         if config.verbose:
             print(f"genqp iter={it} primal={primal_error.amax().item():.3e} "

@@ -33,6 +33,7 @@ from lqp_py_tpu_torch.models._polish import (al_lam_threshold,
                                              gen_penalty_polish)
 from lqp_py_tpu_torch.models.box_qp_grad import _outer, _sym_outer
 from lqp_py_tpu_torch.models.eqcon import qp_eqcon, solve_qp_eqcon
+from lqp_py_tpu_torch.ops import collective
 from lqp_py_tpu_torch.ops.linalg import _mv, _schur_pieces, spd_inverse_fast
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import QPSolution, as_vector, like_layout
@@ -199,6 +200,8 @@ class _IPState(NamedTuple):
     primal: torch.Tensor         # (B,)
     dual: torch.Tensor           # (B,)
     converged: torch.Tensor      # (B,) bool
+    busy: Optional[torch.Tensor] = None   # () some element unconverged
+    #                                       ('amax' exit)
 
 
 def solve_qp_optnet(Q, p, A=None, b=None, G=None, h=None,
@@ -321,20 +324,29 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
         alpha = torch.where(conv_el[..., None], 0.0,
                             _step_length(((st.z, dz), (st.s, ds))))
 
-        error = resid.mean() if config.reduce == "mean" else resid.amax()
+        # Batch-wide over the batch group (ops/collective.py): one
+        # collective per iteration carries what the exit test reads.
+        busy = None
+        if config.reduce == "mean":
+            error = collective.batch_mean(resid)
+        else:
+            red = collective.batch_max(torch.stack(
+                [resid.amax(), (~conv_el).any().to(resid.dtype)]))
+            error, busy = red[0], red[1] > 0
         if config.verbose:
             print(f"ip iter={it} gap={float(error):.3e}")
         return _IPState(
             x=st.x + alpha * dx, s=st.s + alpha * ds, z=st.z + alpha * dz,
             y=None if st.y is None else st.y + alpha * (dy_a + dy_c),
-            error=error, primal=prim, dual=dual, converged=conv_el)
+            error=error, primal=prim, dual=dual, converged=conv_el,
+            busy=busy)
 
     it = 0
     while it < config.max_iters:
         st = body(st, it)
         it += 1
         live = (float(st.error) >= tol if config.reduce == "mean"
-                else not bool(st.converged.all()))
+                else bool(st.busy))
         if not live:
             break
 

@@ -52,12 +52,16 @@ def _scale_pad_q(Q, D, pad):
 
 
 def _scaling_vector(Q, beta):
-    """D from the column inf-norms of Q, blended toward its mean by beta
-    (``None``: per element, 1 - q10(D)/q90(D)).  ``amax`` splits the
-    gradient evenly among tied maxima, as ``jnp.max`` does;
-    ``torch.quantile`` interpolates linearly, as ``jnp.quantile`` does."""
-    Q_norm = _safe_colnorm(Q.abs().amax(dim=-2))        # column inf-norms
-    D = torch.sqrt(1.0 / Q_norm)
+    """D from the column inf-norms of Q (``scaling_from_norms``).  ``amax``
+    splits the gradient evenly among tied maxima, as ``jnp.max`` does."""
+    return scaling_from_norms(Q.abs().amax(dim=-2), beta)
+
+
+def scaling_from_norms(col_norms, beta):
+    """D from the (B, n) column inf-norms of Q, blended toward its mean by
+    beta (``None``: per element, 1 - q10(D)/q90(D)); ``torch.quantile``
+    interpolates linearly, as ``jnp.quantile`` does."""
+    D = torch.sqrt(1.0 / _safe_colnorm(col_norms))
     if beta is None:
         q = torch.quantile(
             D, torch.tensor([0.10, 0.90], dtype=D.dtype, device=D.device),

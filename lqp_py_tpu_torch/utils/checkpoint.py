@@ -17,6 +17,7 @@ import pathlib
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from lqp_py_tpu_torch.models.train import LinearQP
 
@@ -58,16 +59,33 @@ def restore_train_state(path, template: TrainState) -> TrainState:
 
     ``template`` gives the structure, dtypes and devices: pass a freshly
     initialized state, e.g. ``init_train_state(init_params(...),
-    n_epochs)``.  The stored values are loaded into a copy of its
+    n_epochs)``.  A parameter of the template that is a ``DTensor`` (say
+    ``W`` sharded over a mesh's 'tp' axis) comes back with the template's
+    mesh and placements, each rank keeping its own shard of the saved
+    (unsharded) value.  The stored values go into a copy of the template's
     parameters; the template is left as it was."""
     saved = torch.load(pathlib.Path(path), map_location="cpu",
                        weights_only=True)
     params = copy.deepcopy(template.params)
-    params.load_state_dict(saved["params"])
+    like = params.state_dict()
+    params.load_state_dict(
+        {k: _placed_like(v, like[k]) for k, v in saved["params"].items()},
+        assign=True)
     losses = saved["losses"].to(dtype=template.losses.dtype,
                                 device=template.losses.device)
     return TrainState(params=params, epoch=int(saved["epoch"]),
                       losses=losses)
+
+
+def _placed_like(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``value`` in ``like``'s dtype and device, and for a ``DTensor`` its
+    mesh and placements (every rank holds the whole saved value, so each
+    takes its shard without communication)."""
+    if isinstance(like, DTensor):
+        return distribute_tensor(
+            value.to(dtype=like.dtype, device=like.device_mesh.device_type),
+            like.device_mesh, like.placements, src_data_rank=None)
+    return value.to(dtype=like.dtype, device=like.device)
 
 
 def latest_checkpoint(root) -> Optional[pathlib.Path]:

@@ -127,8 +127,15 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
     assert leaf["launches_genqp_polish"] >= 2 * 2
     assert leaf["launches_genqp_bwd"] == 2
     assert kernels[1]["launches_big_batch"] == 1
+    # Phases 22-23 (two gloo ranks, and a one-rank world, in worker
+    # processes on the CPU): the leaf on the dp ranks' solves and on every
+    # pivot panel of the tp=2 factorizations (two 100-wide panels, one a
+    # rank, at n=200).
+    assert leaf["launches_dp"] >= 2 * 2 and leaf["launches_dp"] % 2 == 0
+    assert leaf["launches_tp"] >= 2
+    assert leaf["launches_tp_per_rank"][0] == leaf["launches_tp_per_rank"][1]
     phases = {line.split()[1] for line in lines if line.startswith("phase")}
-    assert phases == {str(i) for i in range(1, 22)}
+    assert phases == {str(i) for i in range(1, 24)}
 
 
 def test_chip_smoke_without_cuda_fails_before_any_result(tmp_path):

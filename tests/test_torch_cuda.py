@@ -441,3 +441,72 @@ def test_genqp_on_cuda_matches_cpu(cuda):
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4
     for g_, c in ((gQg, gQc), (gpg, gpc)):
         assert (g_ - c).abs().max() <= 1e-4 * c.abs().max()
+
+
+# The parallel layer on one card: two gloo ranks (NCCL refuses two ranks on
+# one device), started by the port's launcher.
+_GLOO_COLLECTIVES = """
+import torch, torch.distributed as dist
+from lqp_py_tpu_torch.parallel import initialize_distributed
+initialize_distributed(backend="gloo")
+r = dist.get_rank()
+x = torch.full((3, 5), float(r + 1), device="cuda")
+dist.all_reduce(x)
+assert x.is_cuda and bool((x == 3.0).all()), x
+m = torch.tensor([float(r), -float(r)], device="cuda")
+dist.all_reduce(m, op=dist.ReduceOp.MAX)
+assert m.tolist() == [1.0, 0.0], m
+y = torch.arange(6.0, device="cuda") * (r + 1) if r == 1 else torch.empty(
+    6, device="cuda")
+dist.broadcast(y, src=1)
+assert y.tolist() == [2.0 * i for i in range(6)], y
+print("ok", r, dist.get_backend())
+dist.destroy_process_group()
+"""
+
+_TP_FACTORIZATION = """
+import torch, torch.distributed as dist
+from lqp_py_tpu_torch.ops import linalg as lin
+from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
+from lqp_py_tpu_torch.parallel import initialize_distributed, make_mesh
+from lqp_py_tpu_torch.parallel import tp as tpm
+initialize_distributed(backend="gloo")
+B, n = 8, 1024
+g = torch.Generator(device="cuda").manual_seed(5)
+a = torch.randn((B, 2 * n, n), generator=g, device="cuda", dtype=torch.float64)
+H = ((a.mT @ a) / (2 * n) + torch.eye(n, device="cuda", dtype=torch.float64))
+mesh = make_mesh((1, 2), ("dp", "tp"))
+tp = tpm._TP(mesh, "tp", n)
+with highest_matmul_precision():
+    before = sk.LAUNCHES
+    got = tpm.column_spd_inverse(H.float()[:, :, tp.mine].contiguous(), tp)
+    launches = sk.LAUNCHES - before
+    ref = lin.spd_inverse_fast(H.float())[:, :, tp.mine]
+want = torch.linalg.inv(H)[:, :, tp.mine]
+torch.cuda.synchronize()
+err = ((got.double() - want).abs().max() / want.abs().max()).item()
+err_fast = ((ref.double() - want).abs().max() / want.abs().max()).item()
+assert launches == n // 128 // 2, launches
+assert err <= max(4 * err_fast, 1e-6), (err, err_fast)
+print("ok", dist.get_rank(), launches, err, err_fast)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("code", [_GLOO_COLLECTIVES, _TP_FACTORIZATION],
+                         ids=["gloo-collectives", "tp-factorization"])
+def test_two_gloo_ranks_on_one_card(cuda, code):
+    """The launcher's two gloo ranks on one card: broadcast and all-reduce
+    (sum and max) of CUDA tensors; and the tp factorization's local block
+    at (8, 1024, 1024) f32, tp=2 (four leaves per rank), against a float64
+    inverse, within 4x the error of ``spd_inverse_fast``."""
+    import sys
+    from pathlib import Path
+
+    from lqp_py_tpu_torch.parallel.launch import launch
+
+    _build.load_library()            # built once, before the ranks load it
+    outs = launch([sys.executable, "-c", code], 2, timeout_s=300,
+                  cwd=str(Path(__file__).resolve().parents[1]))
+    assert all(o.splitlines()[-1].startswith("ok") for o in outs), outs
