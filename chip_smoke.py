@@ -65,8 +65,17 @@ and the same dp solve in a one-rank world on the card's default backend
 leaf launches per factorization, the solve on the rank's own blocks with
 the whole problem kept on the host, and the card memory each rank holds
 (its blocks, the solve's temporaries, its peak over all it holds) against
-a tp=1 solve.  A failed rank fails the phase.  Every phase raises on
-failure.  The line
+a tp=1 solve.  Phases 24-26 run the column-sharded (tp=2) solves of the
+other solver families in the same two-rank world: phase 24 GenQP on phase
+19's requests (the Gram exchange and one factorization timed, the per-rank
+memory against a tp=1 GenQP in the one-rank world), phase 25 the box IP on
+phase 16's requests, OptNet Schur on phase 18's data and OptNet condensed
+at n=256, phase 26 the box ADMM with polish (phase 13's requests), with
+Anderson and with the early-exit step (phase 8's straggler batch; the
+rectangular GEMV on the rank's block of P, counted per rank).  Phase 7 also
+holds the GEMV's rectangular form, the tp step's (128, 1024, 512) block,
+against its plain version at 0/50/90% converged, timed beside ``P @ r``.
+A failed rank fails the phase.  Every phase raises on failure.  The line
 before the last lists each kernel with its launches on its paths, its
 error against the plain version, its time beside the plain version's, its
 bound and a library yardstick; the last line is
@@ -115,9 +124,13 @@ N_X2, N_FEAT2, N_BATCH2, MINI2, LR2, STEPS2 = 500, 5, 128, 32, 5e-4, 10
 F32_FLOPS, TF32X3_FLOPS, HBM_BYTES_S = 67e12, 495e12 / 3, 3.35e12
 # The card the script drives; the CPU rehearsal test sets "cpu".
 DEVICE = "cuda"
-# Phases 22-23: the seed of boxqp_sharded's gradient weights, and each
+# Phases 22-26: the seed of boxqp_sharded's gradient weights, and each
 # world's time limit (start-up included).
 W_SEED, PAR_TIMEOUT_S = 7, 300
+# Phase 25's condensed OptNet tp=2 runs at n=256 (G = [-I; I]): at n=1000
+# each of its iterations would exchange a (128, 2000, 500) f32 block of G
+# (512 MB) through the host.
+N_COND = 256
 
 
 def _check(cond, msg):
@@ -151,12 +164,52 @@ def _bound(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _gemv_bytes(b, n_act, m, k):
+    """Bytes the early-exit GEMV must move for (b, m, k) P with ``n_act``
+    active elements: their P and r read, the frozen elements' x_prev read,
+    every element's out written (float32)."""
+    return 4 * (n_act * (m * k + k) + (b - n_act) * m + b * m)
+
+
 def _wall_ms(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def _straggler_data(n, b, n_hard, dev):
+    """Phase 8's straggler serving batch (experiments/
+    experiment_straggler.py): hard problems, all but ``n_hard`` ridged with
+    mean(diag Q) * I into easy ones."""
+    from lqp_py_tpu_torch.utils.generators import generate_hard_qp
+    hard = generate_hard_qp(n, b, seed=0, dtype=torch.float32, device=dev)
+    ridge = hard.Q.diagonal(dim1=-2, dim2=-1).mean(dim=-1)
+    is_easy = torch.arange(b, device=dev) < b - n_hard
+    Q = hard.Q + torch.where(is_easy, ridge, 0.0)[:, None, None] * torch.eye(
+        n, device=dev)
+    return (Q, *hard[1:])
+
+
+def _general_ineq_data(n, b, ni, dev):
+    """Phase 18's OptNet problems on ni general inequalities, random around
+    a strictly feasible point as tests/test_optnet.py:48-78 builds them."""
+    from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
+    g18 = torch.Generator(device=dev).manual_seed(18)
+    kw = dict(device=dev, dtype=torch.float32)
+    L = torch.randn((b, 2 * n, n), generator=g18, **kw)
+    with highest_matmul_precision():
+        Q = L.mT @ L / (2 * n) + 0.1 * torch.eye(n, **kw)
+        del L
+        p = torch.randn((b, n), generator=g18, **kw)
+        A = torch.randn((b, 1, n), generator=g18, **kw)
+        x0 = torch.randn((b, n), generator=g18, **kw)
+        rhs = (A @ x0[..., None])[..., 0]
+        G = torch.randn((b, ni, n), generator=g18, **kw)
+        h = ((G @ x0[..., None])[..., 0] + 0.5
+             + torch.rand((b, ni), generator=g18, **kw))
+    return Q, p, A, rhs, G, h
 
 
 def main():
@@ -183,10 +236,10 @@ def main():
     from lqp_py_tpu_torch.ops.kernels import admm_step as gk
     from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
     from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+    from lqp_py_tpu_torch.ops.operator import DENSE
     from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
     from lqp_py_tpu_torch.utils import checkpoint as ckpt
     from lqp_py_tpu_torch.utils.generators import (create_qp_data,
-                                                   generate_hard_qp,
                                                    kkt_residuals)
     from lqp_py_tpu_torch.utils.profiling import timed, trace
 
@@ -455,6 +508,58 @@ def main():
                   f"plain {gemv[frac]['paced_plain_ms']:.4f} ms ({h_p1:.4f}, "
                   f"{h_p2:.4f})")
     del P7
+    # The rectangular form, the tp=2 early-exit step's block of P: (B, m, k)
+    # = (128, 1024, 512), 0/50/90% converged, in turns with its plain
+    # version (device time), beside P @ r (one batched matmul).
+    M7, K7 = N_PAD, N_PAD // 2
+    P7r = torch.randn((B, M7, K7), generator=g7, device=dev)
+    r7r = torch.randn((B, K7), generator=g7, device=dev)
+    rect = {}
+    with highest_matmul_precision():
+        for frac in (0.0, 0.5, 0.9):
+            conv = torch.zeros(B, dtype=torch.bool, device=dev)
+            conv[order[:round(frac * B)]] = True
+            out = gk.gemv_early_exit(P7r, r7r, x7, conv)
+            ref7 = gk.gemv_early_exit_ref(P7r, r7r, x7, conv)
+            torch.cuda.synchronize()
+            _check(tuple(out.shape) == (B, M7)
+                   and torch.equal(out[conv], x7[conv]),
+                   f"rectangular, {frac:.0%} converged: frozen rows are not "
+                   f"x_prev")
+            act = ~conv
+            err = (out[act] - ref7[act]).abs().max().item()
+            rel = err / ref7[act].abs().max().item()
+            _check(rel <= 1e-5, f"rectangular, {frac:.0%} converged: kernel "
+                   f"vs plain relative difference {rel:.3e}")
+
+            def kern_r():
+                gk.gemv_early_exit(P7r, r7r, x7, conv)
+
+            def plain_r():
+                gk.gemv_early_exit_ref(P7r, r7r, x7, conv)
+
+            def call_r():
+                P7r @ r7r[..., None]
+
+            call_r()
+            t_p1, t_k1, t_k2, t_p2, t_c = (_event_ms(f, 20, True) for f in (
+                plain_r, kern_r, kern_r, plain_r, call_r))
+            n_act = int(act.sum())
+            rect[frac] = dict(
+                ms=(t_k1 + t_k2) / 2, plain_ms=(t_p1 + t_p2) / 2,
+                library_ms=t_c, err=err, active=n_act,
+                bound=_bound(2 * n_act * M7 * K7,
+                             _gemv_bytes(B, n_act, M7, K7)))
+            print(f"phase 7 early-exit GEMV, rectangular ({B},{M7},{K7}) "
+                  f"f32, {B - n_act}/{B} converged: max|kernel-plain| "
+                  f"{err:.3e} (rel {rel:.3e} <= 1e-5), frozen rows bitwise; "
+                  f"device time kernel {rect[frac]['ms']:.4f} ms ({t_k1:.4f}, "
+                  f"{t_k2:.4f}), plain {rect[frac]['plain_ms']:.4f} ms "
+                  f"({t_p1:.4f}, {t_p2:.4f}), P @ r {t_c:.4f} ms; bound "
+                  f"{rect[frac]['bound'][0]:.4f} ms by "
+                  f"{rect[frac]['bound'][1]} (P and r of the active "
+                  f"elements, x_prev of the frozen, out of all)")
+    del P7r, r7r, ref7
     # A batch above the grid's y limit (65535) runs in chunks: B_BIG
     # elements of n=8, a third of them converged.
     Pb = torch.randn((B_BIG, 8, 8), generator=g7, device=dev)
@@ -480,9 +585,8 @@ def main():
           f"n=8, {int(convb.sum())} converged: max|kernel-plain| {errb:.3e} "
           f"(rel {relb:.3e} <= 1e-5), frozen rows bitwise")
     del Pb, rb, xb, outb, refb
-    # Bytes the kernel must move with none converged: all of P, r, x_prev
-    # (unread then, but counted as the plain version reads it) and out.
-    bytes0 = 4 * B * N_PAD * (N_PAD + 3)
+    # Bytes the kernel must move with none converged: all of P, r and out.
+    bytes0 = _gemv_bytes(B, B, N_PAD, N_PAD)
     gbps0 = bytes0 / (gemv[0.0]["ms"] * 1e-3) / 1e9
     ratio90 = gemv[0.9]["ms"] / gemv[0.0]["ms"]
     active90 = B - round(0.9 * B)
@@ -504,13 +608,7 @@ def main():
 
     # 8. Straggler serving batch (experiments/experiment_straggler.py):
     # hard problems, all but N_HARD ridged with mean(diag Q) * I.
-    hard = generate_hard_qp(N, B, seed=0, dtype=torch.float32, device=dev)
-    ridge = hard.Q.diagonal(dim1=-2, dim2=-1).mean(dim=-1)
-    is_easy = torch.arange(B, device=dev) < B - N_HARD
-    Q8 = hard.Q + torch.where(is_easy, ridge, 0.0)[:, None, None] * torch.eye(
-        N, device=dev)
-    data8 = (Q8, *hard[1:])
-    del hard
+    data8 = _straggler_data(N, B, N_HARD, dev)
     base = dict(eps_abs=TOL, eps_rel=TOL, symmetrize=False, max_iters=4000)
     cfg_lock = BoxQPConfig(**base)
     cfg_early = BoxQPConfig(use_pallas_step=True, **base)
@@ -559,6 +657,10 @@ def main():
     dx8 = (sols8["early-exit"].x - sols8["lock-step"].x).abs().max().item()
     _check(dx8 <= 1e-2, f"max|x_early - x_lockstep| = {dx8:.3e}")
     print(f"phase 8 max|x_early - x_lockstep| {dx8:.3e} (<= 1e-2)")
+    # Phase 26 holds the tp=2 straggler solves to these.
+    ref = {"x8": sols8["lock-step"].x.cpu(),
+           "it8": {k: v[-1][1]["it"] for k, v in runs8.items()},
+           "q8_sum": float(data8[0].double().sum())}
 
     # Served prepared: one preparation for the early-exit step, a request
     # at p (checked against the direct solve) and one at p drifted by 1%,
@@ -1129,9 +1231,9 @@ def main():
     last_diag = []
     factor_fn = bip._factor
 
-    def spy_factor(Q, A, diag, int_reg):
+    def spy_factor(ops, Q, A, diag, int_reg):
         last_diag[:] = [diag]
-        return factor_fn(Q, A, diag, int_reg)
+        return factor_fn(ops, Q, A, diag, int_reg)
 
     bip._factor = spy_factor
     try:
@@ -1166,7 +1268,7 @@ def main():
     # H = Q + diag(d) + int_reg I with their Schur pieces.
     with highest_matmul_precision():
         fact16_ms = _event_ms(lambda: bip._factor(
-            data0.Q, data0.A, last_diag[0], cfg_ip.int_reg), 3)
+            DENSE, data0.Q, data0.A, last_diag[0], cfg_ip.int_reg), 3)
     share16 = (1 + it16 + 2) * fact16_ms / min(ms16w)
     x16, gQ16, gp16, fb16_ms, peak16 = ip_fwd_bwd(boxqp_ip, *data0)
     dlayer16 = (x16 - bip16.x).abs().max().item()
@@ -1308,20 +1410,8 @@ def main():
     # 18. OptNet IP on general inequalities (ni < n: the Schur
     # factorization), random around a strictly feasible point as
     # tests/test_optnet.py:48-78 builds them.
-    g18 = torch.Generator(device=dev).manual_seed(18)
-    kw18 = dict(device=dev, dtype=torch.float32)
-    L18 = torch.randn((B, 2 * N, N), generator=g18, **kw18)
-    with highest_matmul_precision():
-        Q18 = L18.mT @ L18 / (2 * N) + 0.1 * torch.eye(N, **kw18)
-        del L18
-        p18 = torch.randn((B, N), generator=g18, **kw18)
-        A18 = torch.randn((B, 1, N), generator=g18, **kw18)
-        x0 = torch.randn((B, N), generator=g18, **kw18)
-        b18 = (A18 @ x0[..., None])[..., 0]
-        G18 = torch.randn((B, N_INEQ, N), generator=g18, **kw18)
-        h18 = ((G18 @ x0[..., None])[..., 0] + 0.5
-               + torch.rand((B, N_INEQ), generator=g18, **kw18))
-    args18 = (Q18, p18, A18, b18, G18, h18)
+    args18 = _general_ineq_data(N, B, N_INEQ, dev)
+    Q18, p18, A18, b18, G18, h18 = args18
     _check(not onet._use_condensed(cfg_ip, N, N_INEQ), "OptNet: 'auto' did "
            "not pick the Schur factorization for ni < n")
     sk.LAUNCHES = 0
@@ -1387,6 +1477,8 @@ def main():
           f"request; condensed float64 "
           f"{c18.iterations} iterations, {ms18c:.2f} ms, max|x_schur_f32 - "
           f"x_condensed_f64| {dx18:.3e} (<= 1e-3)")
+    ref.update(x64_18=c18.x.cpu(), it18=it18,
+               q18_sum=float(Q18.double().sum()))
     del args18, Q18, p18, A18, b18, G18, h18, on18, c18
 
     # 19. Experiment 1's GenQP column (experiments/experiment_1.py:219-228):
@@ -1399,7 +1491,7 @@ def main():
     args19 = (data0.Q, data0.p, data0.A, data0.b, G19, h19)
     cfg19 = GenQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False)
     facts19 = []
-    fact_fn = lin.factorize_kkt
+    fact_fn = DENSE.factorize       # the solver factors through its operator
 
     def counted_fact(*a, **kw):
         facts19.append(1)
@@ -1418,7 +1510,7 @@ def main():
     def solve19(cfg):
         return solve_qp_gen(*args19, config=cfg)
 
-    lin.factorize_kkt = counted_fact
+    DENSE.factorize = counted_fact
     try:
         sk.LAUNCHES = 0
         sol19, ms19, leaves19, nf19 = counted_run(lambda: solve19(cfg19))
@@ -1450,7 +1542,7 @@ def main():
             lambda: solve19(dataclasses.replace(cfg19,
                                                 acceleration=AA_WINDOW)))
     finally:
-        lin.factorize_kkt = fact_fn
+        del DENSE.factorize                     # the class's method again
     conv19 = int(sol19.converged.sum())
     _check(conv19 == B and bool(torch.isfinite(sol19.x).all())
            and not bool(sol19.primal_infeasible.any()),
@@ -1538,11 +1630,10 @@ def main():
     vk = torch.ones((B, 2 * N), device=dev)
     with highest_matmul_precision():
         gtg19_ms = _event_ms(lambda: Gs19.mT @ Gs19, 3)
-        fact19_ms = _event_ms(lambda: lin.factorize_kkt(gq._x_operator(
-            prep19.Qs, prep19.GtG, rho19, cfg19.sigma), None, prep19.As,
-            mode="inverse"), 3)
-        gemv19_ms = _event_ms(lambda: gq._mv(Gs19, lin.kkt_apply(
-            prep19.factors, gq._mtv(Gs19, vk), prep19.bs)[0]), 10)
+        fact19_ms = _event_ms(lambda: DENSE.factorize(gq._x_operator(
+            prep19.Qs, prep19.GtG, rho19, cfg19.sigma), prep19.As), 3)
+        gemv19_ms = _event_ms(lambda: gq._mv(Gs19, DENSE.kkt_apply(
+            prep19.factors, gq._mv(Gs19.mT, vk), prep19.bs)[0]), 10)
     del vk, Gs19
     # One request under the profiler (utils.profiling.trace): its kernels'
     # summed device time (one stream: they do not overlap) over the median
@@ -1556,6 +1647,7 @@ def main():
             prof19.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     it19 = sol19.iterations
+    ref["it19"] = it19
     req19 = t_req19["median_s"] * 1e3
     print(f"phase 19 GenQP (Experiment 1's GenQP column, G = [-I; I] "
           f"({B},{2 * N},{N}), f32, tol {TOL:g}): {conv19}/{B} converged in "
@@ -1722,7 +1814,8 @@ def main():
           f"[{', '.join(f'{v:.5f}' for v in full21.losses.tolist())}]")
 
     # 22-23. The parallel layer, in worlds of worker processes on this card.
-    par = _parallel_phases(dev, x5, it5, x64_5)
+    ref.update(x5=x5, it5=it5, x64_5=x64_5)
+    par = _parallel_phases(dev, ref)
 
     print(json.dumps({"kernels": [{
         "name": "sweep_spd_inverse", "route": "cuda",
@@ -1738,6 +1831,11 @@ def main():
         "launches_genqp_polish": pol_leaves19,
         "launches_dp": par["launches_dp"], "launches_tp": par["launches_tp"],
         "launches_tp_per_rank": par["launches_tp_per_rank"],
+        "launches_tp_genqp_per_rank": par["launches_tp_genqp"],
+        "launches_tp_box_ip_per_rank": par["launches_tp_box_ip"],
+        "launches_tp_optnet_schur_per_rank": par["launches_tp_optnet_schur"],
+        "launches_tp_optnet_condensed_per_rank":
+            par["launches_tp_optnet_condensed"],
         "err_ip_vs_f64": err16_k,
         "plain_err_ip_vs_f64": err16_p,
         "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
@@ -1750,6 +1848,15 @@ def main():
         "launches": launches8_gemv,
         "max_abs_err": max(v["err"] for v in gemv.values()),
         "launches_big_batch": launches_big, "max_abs_err_big_batch": errb,
+        "launches_tp": par["launches_gemv_tp"],
+        "launches_tp_per_rank": par["launches_gemv_tp_per_rank"],
+        "ms_rect": rect[0.0]["ms"], "plain_ms_rect": rect[0.0]["plain_ms"],
+        "library_ms_rect": rect[0.0]["library_ms"],
+        "bound_ms_rect": rect[0.0]["bound"][0],
+        "bound_by_rect": rect[0.0]["bound"][1],
+        "max_abs_err_rect": max(v["err"] for v in rect.values()),
+        "ms_rect_50": rect[0.5]["ms"], "ms_rect_90": rect[0.9]["ms"],
+        "bound_ms_rect_90": rect[0.9]["bound"][0],
         "ms": gemv[0.0]["ms"], "plain_ms": gemv[0.0]["plain_ms"],
         "bound_ms": gemv_bound[0], "bound_by": gemv_bound[1],
         "library_ms": gemv_lib_ms, "ms_in_turns": gemv_turn_ms,
@@ -1777,8 +1884,9 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def _parallel_phases(dev, x5, it5, x64_5):
-    """Phases 22-23: ``lqp_py_tpu_torch.parallel`` on phase 5's requests.
+def _parallel_phases(dev, ref):
+    """Phases 22-26: ``lqp_py_tpu_torch.parallel`` on the requests of the
+    earlier phases, held to their answers (``ref``).
 
     A world of two ranks on this one card with ``backend="gloo"`` (NCCL
     refuses two ranks on one device; gloo stages CUDA tensors through the
@@ -1789,12 +1897,16 @@ def _parallel_phases(dev, x5, it5, x64_5):
     card backend (NCCL) runs the dp solve and the tp=1 solve the memory
     gate compares with.  The ranks are this script with ``--worker``
     (``_parallel_worker``), started by ``parallel/launch.py``; a failed
-    rank fails the phase."""
+    rank fails the phase.  The gloo world also runs the tp=2 solves of
+    phases 24-26 (GenQP, the box IP, OptNet in both modes, the box ADMM
+    with polish, Anderson and the early-exit step); the one-rank world the
+    tp=1 GenQP solve the memory gate of phase 24 compares with."""
     from lqp_py_tpu_torch import BoxQPConfig, boxqp
     from lqp_py_tpu_torch.parallel import tp as tpm
     from lqp_py_tpu_torch.parallel.launch import launch
     from lqp_py_tpu_torch.utils.generators import create_qp_data
 
+    x5, it5, x64_5 = ref["x5"], ref["it5"], ref["x64_5"]
     cfg = BoxQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False)
     data = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
     w = torch.randn((B, N), generator=torch.Generator(device=dev).manual_seed(
@@ -1804,8 +1916,19 @@ def _parallel_phases(dev, x5, it5, x64_5):
     g1 = torch.autograd.grad((w * x1).sum(), p1)[0]
     spec = {"device": DEVICE, "N": N, "B": B, "TOL": TOL,
             "q_sum": float(data.Q.double().sum()),
-            "p_sum": float(data.p.double().sum())}
+            "p_sum": float(data.p.double().sum()), "N_HARD": N_HARD,
+            "N_INEQ": N_INEQ, "N_COND": N_COND, "AA_WINDOW": AA_WINDOW,
+            "q8_sum": ref["q8_sum"], "q18_sum": ref["q18_sum"]}
     del data, x1, p1
+    # Phase 25's condensed OptNet at n=N_COND: its float64 answer (the box
+    # ADMM at tol 1e-9, as phase 5's).
+    from lqp_py_tpu_torch import solve_box_qp
+    dc = create_qp_data(N_COND, B, seed=0, dtype=torch.float32, device=dev)
+    ref["x64_cond"] = solve_box_qp(*(t.double() for t in dc),
+                                   config=BoxQPConfig(eps_abs=1e-9,
+                                                      eps_rel=1e-9,
+                                                      symmetrize=False)).x
+    del dc
     with tempfile.TemporaryDirectory() as tmp:
         spec["out"] = tmp
         with open(f"{tmp}/spec.json", "w") as f:
@@ -1917,9 +2040,163 @@ def _parallel_phases(dev, x5, it5, x64_5):
           f"{one['peak'] / 2**20:.1f}, <= 0.7; "
           f"{mem['resident'] / 2**20:.1f} and "
           f"{one['resident'] / 2**20:.1f} MiB held before the blocks)")
-    return {"launches_dp": sum(i["dp_launches"] for i, _ in gloo),
-            "launches_tp": sum(i["tp_launches"] for i, _ in gloo),
-            "launches_tp_per_rank": [i["tp_launches"] for i, _ in gloo]}
+    out = {"launches_dp": sum(i["dp_launches"] for i, _ in gloo),
+           "launches_tp": sum(i["tp_launches"] for i, _ in gloo),
+           "launches_tp_per_rank": [i["tp_launches"] for i, _ in gloo]}
+    out.update(_tp_solver_phases(dev, ref, gloo, nccl))
+    return out
+
+
+def _tp_solver_phases(dev, ref, gloo, nccl):
+    """Phases 24-26 from the ranks' records (``_tp_solver_worker``): every
+    rank converged with x bitwise the other's, x against the float64
+    answers of the earlier phases, leaf and GEMV launches per rank, and the
+    GenQP memory against tp=1's."""
+    from lqp_py_tpu_torch.parallel.tp_ops import column_blocks
+
+    L, w_piv = column_blocks(N, 2)
+    per_fact = L // w_piv                 # pivot panels (leaves) per rank
+    info0, arr0 = gloo[0]
+
+    def same(key):
+        for info, arr in gloo:
+            _check(bool(arr[key + "_converged"].all()),
+                   f"{key}: {int(arr[key + '_converged'].sum())}/{B} "
+                   f"converged")
+            _check(np.array_equal(arr[key + "_x"], arr0[key + "_x"]),
+                   f"{key}: the ranks' replicated x differ")
+            _check(info[key]["it"] == info0[key]["it"],
+                   f"{key}: the ranks' iteration counts differ")
+        return torch.from_numpy(arr0[key + "_x"]).to(dev)
+
+    def vs64(key, x, x64):
+        """max|x - x_f64| per element; within 1e-3 unless the polish was
+        rejected (the element kept its interior-point x, bitwise the
+        unpolished solve's; phases 16-18), and within 1e-2 always."""
+        dev_el = (x.double() - x64.to(dev)).abs().amax(dim=-1)
+        kept = torch.from_numpy(
+            (arr0[key + "_x"] == arr0[key + "_raw_x"]).all(axis=-1)).to(dev)
+        _check(bool(((dev_el <= 1e-3) | kept).all())
+               and dev_el.max().item() <= 1e-2,
+               f"{key}: max|x - x_f64| {dev_el.max().item():.3e}, "
+               f"{int(((dev_el > 1e-3) & ~kept).sum())} beyond 1e-3 with an "
+               f"accepted polish")
+        return dev_el.max().item(), int((dev_el <= 1e-3).sum()), int(
+            kept.sum())
+
+    def ms(key):
+        return [round(i[key]["ms"], 2) for i, _ in gloo]
+
+    # 24. GenQP tp=2.
+    g = info0["gen"]
+    x24 = same("gen")
+    for info, _ in gloo:
+        _check(info["gen"]["leaves"] == info["gen"]["facts"] * per_fact
+               and info["gen"]["facts"] >= 1,
+               f"GenQP tp: {info['gen']['leaves']} leaves for "
+               f"{info['gen']['facts']} factorizations of {per_fact} panels")
+    dx24 = (x24.double() - ref["x64_5"]).abs().max().item()
+    _check(dx24 <= 1e-3, f"GenQP tp: max|x - x_f64| = {dx24:.3e}")
+    one = nccl[0][0]["gen1"]
+    mem = {k: max(i["gen_mem"][k] for i, _ in gloo) for k in one}
+    args_r, peak_r = mem["args"] / one["args"], mem["peak"] / one["peak"]
+    _check(args_r <= 0.55, f"GenQP tp=2 argument bytes {args_r:.3f}x tp=1's")
+    _check(peak_r <= 0.75, f"GenQP tp=2 peak {peak_r:.3f}x tp=1's")
+    print(f"phase 24 GenQP tp=2 (phase 19's requests: B={B}, n={N}, G = "
+          f"[-I; I], f32, tol {TOL:g}), gloo on one card: {B}/{B} "
+          f"converged in {g['it']} iterations (phase 19's {ref['it19']}), "
+          f"max|x - x_f64| {dx24:.3e} (<= 1e-3), ranks' x bitwise equal; "
+          f"request {max(ms('gen')):.2f} ms (ranks {ms('gen')}); "
+          f"{g['facts']} factorizations x {per_fact} panels: leaf launches "
+          f"{[i['gen']['leaves'] for i, _ in gloo]}; Gram exchange "
+          f"(Gs^T Gs, the other rank's ({B}, {2 * N}, {N - L}) block "
+          f"received, {g['received'] / 2**20:.1f} MiB) "
+          f"{g['gram_ms']:.2f} ms, one factorization {g['fact_ms']:.2f} ms; "
+          f"the whole problem on the host, per rank on the card "
+          f"{mem['args'] / 2**20:.1f} MiB of blocks ({args_r:.3f}x tp=1's "
+          f"{one['args'] / 2**20:.1f}, <= 0.55), peak of all the rank holds "
+          f"{mem['peak'] / 2**20:.1f} MiB ({peak_r:.3f}x tp=1's "
+          f"{one['peak'] / 2**20:.1f}, <= 0.75)")
+
+    # 25. The interior points at tp=2.
+    lines = []
+    for key, x64, want_leaves, what in (
+            ("bip", ref["x64_5"],
+             lambda it: per_fact * (1 + it + 2),
+             f"box IP (phase 16's requests, n={N})"),
+            ("schur", ref["x64_18"],
+             lambda it: per_fact + -(-N_INEQ // LEAF) * (1 + it)
+             + 2 * per_fact,
+             f"OptNet Schur (phase 18's data, n={N}, ni={N_INEQ}; x against "
+             f"its condensed float64 answer)"),
+            ("cond", ref["x64_cond"],
+             lambda it: (column_blocks(N_COND, 2)[0]
+                         // column_blocks(N_COND, 2)[1]) * (1 + it + 2),
+             f"OptNet condensed (B={B}, n={N_COND}, G = [-I; I])")):
+        x = same(key)
+        it = info0[key]["it"]
+        for info, _ in gloo:
+            _check(info[key]["leaves"] == want_leaves(it),
+                   f"{key}: {info[key]['leaves']} leaf launches, expected "
+                   f"{want_leaves(it)} for {it} iterations")
+        dx, n_in, n_kept = vs64(key, x, x64)
+        lines.append(f"{what}: {B}/{B} converged in {it} iterations, max|x "
+                     f"- x_f64| {dx:.3e}, {n_in}/{B} within 1e-3, {n_kept} "
+                     f"kept the interior-point x (polish rejected); leaf "
+                     f"launches {[i[key]['leaves'] for i, _ in gloo]}; "
+                     f"request {max(ms(key)):.2f} ms (ranks {ms(key)})")
+    print(f"phase 25 interior points tp=2 (f32, tol {TOL:g}, max_iters 30, "
+          f"polish), gloo on one card, ranks' x bitwise equal: "
+          + "; ".join(lines))
+
+    # 26. The box ADMM at tp=2 with polish, Anderson and the early-exit
+    # step.
+    x_pol = same("pol")
+    dx26p = (x_pol.double() - ref["x64_5"]).abs().max().item()
+    _check(dx26p <= 1e-3, f"tp polish: max|x - x_f64| = {dx26p:.3e}")
+    x_lock = same("lock8")
+    dx26l = (x_lock - ref["x8"].to(dev)).abs().max().item()
+    _check(dx26l <= 1e-2, f"tp lock-step straggler vs phase 8's: max|dx| "
+           f"{dx26l:.3e}")
+    x_aa, x_early = same("aa8"), same("early8")
+    dx26a = (x_aa - x_lock).abs().max().item()
+    dx26e = (x_early - x_lock).abs().max().item()
+    _check(dx26a <= 1e-2 and dx26e <= 1e-2,
+           f"tp straggler vs tp lock-step: Anderson {dx26a:.3e}, early-exit "
+           f"{dx26e:.3e} (<= 1e-2)")
+    gemv_ranks = [i["early8"]["gemv"] for i, _ in gloo]
+    for info, _ in gloo:
+        _check(info["early8"]["gemv"] == info["early8"]["it"] > 0
+               and info["lock8"]["gemv"] == info["aa8"]["gemv"] == 0,
+               f"tp: {info['early8']['gemv']} rectangular GEMV launches for "
+               f"{info['early8']['it']} early-exit iterations, "
+               f"{info['lock8']['gemv']} lock-step, {info['aa8']['gemv']} "
+               f"Anderson")
+    print(f"phase 26 box ADMM tp=2, gloo on one card, ranks' x bitwise "
+          f"equal: polish on phase 13's requests {info0['pol']['accepted']}/"
+          f"{B} accepted, {info0['pol']['it']} iterations, max|x - x_f64| "
+          f"{dx26p:.3e} (<= 1e-3), request {max(ms('pol')):.2f} ms; on "
+          f"phase 8's straggler batch: lock-step {info0['lock8']['it']} "
+          f"iterations (phase 8's {ref['it8']['lock-step']}), max|x - "
+          f"x_phase8| {dx26l:.3e} (<= 1e-2), {max(ms('lock8')):.2f} ms; "
+          f"Anderson window {AA_WINDOW} {info0['aa8']['it']} iterations, "
+          f"max|x - x_lock| {dx26a:.3e}, {max(ms('aa8')):.2f} ms; "
+          f"early-exit {info0['early8']['it']} iterations (phase 8's "
+          f"{ref['it8']['early-exit']}), max|x - x_lock| {dx26e:.3e} "
+          f"(<= 1e-2), {max(ms('early8')):.2f} ms, rectangular GEMV "
+          f"launches per rank {gemv_ranks} (one per iteration, on the "
+          f"rank's ({B}, {2 * L}, {L}) block of P), frozen rows bitwise "
+          f"x_prev in every call: {all(i['early8']['frozen_bitwise'] for i, _ in gloo)}")
+    _check(all(i["early8"]["frozen_bitwise"] for i, _ in gloo),
+           "tp early-exit: a frozen element's x changed")
+    return {"launches_tp_genqp": [i["gen"]["leaves"] for i, _ in gloo],
+            "launches_tp_box_ip": [i["bip"]["leaves"] for i, _ in gloo],
+            "launches_tp_optnet_schur": [i["schur"]["leaves"]
+                                         for i, _ in gloo],
+            "launches_tp_optnet_condensed": [i["cond"]["leaves"]
+                                             for i, _ in gloo],
+            "launches_gemv_tp": sum(gemv_ranks),
+            "launches_gemv_tp_per_rank": gemv_ranks}
 
 
 def _parallel_worker(spec_path, world):
@@ -1927,9 +2204,10 @@ def _parallel_worker(spec_path, world):
     numbers to ``<world><rank>.json`` and its arrays to ``.npz``."""
     import torch.distributed as dist
 
-    from lqp_py_tpu_torch import BoxQPConfig
+    from lqp_py_tpu_torch import BoxQPConfig, GenQPConfig
     from lqp_py_tpu_torch.ops import collective
     from lqp_py_tpu_torch.ops import linalg as lin
+    from lqp_py_tpu_torch.ops.kernels import admm_step as gk
     from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
     from lqp_py_tpu_torch.parallel import (boxqp_sharded,
                                            initialize_distributed,
@@ -1940,17 +2218,23 @@ def _parallel_worker(spec_path, world):
                                            solve_box_qp_tp,
                                            solve_box_qp_tp_local)
     from lqp_py_tpu_torch.parallel import tp as tpm
-    from lqp_py_tpu_torch.utils.generators import create_qp_data
+    from lqp_py_tpu_torch.parallel import tp_ops
+    from lqp_py_tpu_torch.utils.generators import QPData, create_qp_data
 
     spec = json.loads(Path(spec_path).read_text())
     dev = torch.device(spec["device"], 0)
     if dev.type == "cpu":
-        # The CPU rehearsal (tests/test_torch_chip_smoke.py): the leaf's
-        # plain version stands in for the kernel and counts as a launch.
+        # The CPU rehearsal (tests/test_torch_chip_smoke.py): the kernels'
+        # plain versions stand in for them and count as launches.
         def counted(H):
             sk.LAUNCHES += 1
             return sk.sweep_spd_inverse_ref(H)
+
+        def counted_gemv(*a):
+            gk.LAUNCHES += 1
+            return gk.gemv_early_exit_ref(*a)
         lin.sweep_spd_inverse = counted
+        gk.gemv_early_exit = counted_gemv
 
     def wall(fn):
         if dev.type == "cuda":
@@ -1961,7 +2245,7 @@ def _parallel_worker(spec_path, world):
             torch.cuda.synchronize(dev)
         return out, (time.perf_counter() - t0) * 1e3
 
-    def footprint(mesh_tp, host):
+    def footprint(mesh_tp, host, solver="box", config=None):
         """The tp solve's per-rank memory with the whole problem on the
         host and only the rank's blocks on the card: its arguments, its
         temporaries, and the card's peak over the solve counting every
@@ -1969,8 +2253,8 @@ def _parallel_worker(spec_path, world):
         held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        args, temp = lowered_tp_memory(mesh_tp, *host, config=cfg,
-                                       device=dev)
+        args, temp = lowered_tp_memory(mesh_tp, *host, solver=solver,
+                                       config=config or cfg, device=dev)
         peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                 else args + temp)
         return {"args": args, "temp": temp, "peak": peak, "resident": held}
@@ -2003,6 +2287,12 @@ def _parallel_worker(spec_path, world):
         host = tuple(None if x is None else x.cpu() for x in data)
         del data, sol, one
         info["tp1"] = footprint(mesh_tp, host)
+        # Phase 24's yardstick: tp=1 GenQP, the whole problem on the host.
+        G, h = QPData(*host).with_G_h()
+        info["gen1"] = footprint(mesh_tp, (*host[:4], G, h), "genqp",
+                                 GenQPConfig(eps_abs=spec["TOL"],
+                                             eps_rel=spec["TOL"],
+                                             symmetrize=False))
     else:
         sm = solve_box_qp_shard_map(mesh, *data, config=cfg)
         arrays.update(sm_x=sm.x, sm_it=sm.iterations,
@@ -2014,11 +2304,11 @@ def _parallel_worker(spec_path, world):
                           data.ub, config=cfg)
         arrays["grad"] = shard_batch(torch.autograd.grad(
             (shard_batch(w, mesh) * x).sum(), p)[0], mesh)
-        tpm.FACTORIZATIONS, sk.LAUNCHES = 0, 0
+        tp_ops.FACTORIZATIONS, sk.LAUNCHES = 0, 0
         sol, info["tp_ms"] = wall(
             lambda: solve_box_qp_tp(mesh_tp, *data, config=cfg))
         info.update(tp_it=sol.iterations, tp_launches=sk.LAUNCHES,
-                    tp_factorizations=tpm.FACTORIZATIONS)
+                    tp_factorizations=tp_ops.FACTORIZATIONS)
         arrays.update(tp_x=sol.x, tp_converged=sol.converged)
         # From here the whole problem stays on the host: the card holds
         # the rank's blocks only (``shard_problem_tp(..., device=)``).
@@ -2035,7 +2325,7 @@ def _parallel_worker(spec_path, world):
         tp = tpm._TP(mesh_tp, "tp", n)
         H = tpm._scaled_block(local[0], torch.ones((b, n), device=dev),
                               torch.ones(b, device=dev), tp)
-        info["fact_ms"] = [wall(lambda: tpm.column_spd_inverse(
+        info["fact_ms"] = [wall(lambda: tp_ops.column_spd_inverse(
             H, tp, equilibrate=False))[1] for _ in range(2)]
         del H
         y = torch.zeros((b, tp.N), device=dev)
@@ -2048,12 +2338,125 @@ def _parallel_worker(spec_path, world):
                                  flags).tolist())):
                 info[name] = statistics.mean(wall(fn)[1]
                                              for _ in range(10))
+        del y, panel
+        _tp_solver_worker(spec, dev, mesh_tp, host, local, info, arrays,
+                          wall, footprint)
     out = f"{spec['out']}/{world}{rank}"
     Path(out + ".json").write_text(json.dumps(info))
     np.savez(out + ".npz", **{k: (v.detach().cpu() if torch.is_tensor(v)
                                   else torch.as_tensor(v)).numpy()
                               for k, v in arrays.items()})
     dist.destroy_process_group()
+
+
+def _tp_solver_worker(spec, dev, mesh_tp, host, local, info, arrays, wall,
+                      footprint):
+    """The gloo ranks' part of phases 24-26 (``_tp_solver_phases``): the
+    tp=2 solves of GenQP, the interior points and the box ADMM's options,
+    recorded in ``info`` (per solve: iterations, wall ms, leaf launches,
+    factorizations, early-exit GEMV launches) and ``arrays``."""
+    from lqp_py_tpu_torch import BoxQPConfig, GenQPConfig, OptNetConfig
+    from lqp_py_tpu_torch.models import genqp
+    from lqp_py_tpu_torch.ops.kernels import admm_step as gk
+    from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+    from lqp_py_tpu_torch.parallel import (shard_problem_tp,
+                                           solve_box_qp_ip_tp_local,
+                                           solve_box_qp_tp,
+                                           solve_box_qp_tp_local,
+                                           solve_qp_gen_tp_local,
+                                           solve_qp_optnet_tp)
+    from lqp_py_tpu_torch.parallel import tp as tpm
+    from lqp_py_tpu_torch.parallel import tp_ops
+    from lqp_py_tpu_torch.utils.generators import QPData, create_qp_data
+
+    n, b, tol = spec["N"], spec["B"], spec["TOL"]
+
+    def run(key, fn):
+        sk.LAUNCHES = gk.LAUNCHES = tp_ops.FACTORIZATIONS = 0
+        sol, ms = wall(fn)
+        info[key] = dict(it=sol.iterations, ms=ms, leaves=sk.LAUNCHES,
+                         facts=tp_ops.FACTORIZATIONS, gemv=gk.LAUNCHES)
+        arrays[key + "_x"] = sol.x.cpu()
+        arrays[key + "_converged"] = sol.converged.cpu()
+        return sol
+
+    # 24. GenQP on phase 19's requests: its memory with the whole problem
+    # on the host, then a request on the rank's blocks.
+    cfg_gen = GenQPConfig(eps_abs=tol, eps_rel=tol, symmetrize=False)
+    host_gen = (*host[:4], *QPData(*host).with_G_h())
+    info["gen_mem"] = footprint(mesh_tp, host_gen, "genqp", cfg_gen)
+    local_gen = shard_problem_tp(mesh_tp, *host_gen, solver="genqp",
+                                 device=dev)
+    run("gen", lambda: solve_qp_gen_tp_local(mesh_tp, *local_gen,
+                                             config=cfg_gen))
+    # Its pieces: the Gram exchange of the rank's G block, and one
+    # factorization of an x-step operand of the solve's shape.
+    tp = tp_ops._TP(mesh_tp, "tp", n)
+    ops = tp_ops.Columns(tp)
+    gram, info["gen"]["gram_ms"] = wall(lambda: ops.gram(local_gen[4]))
+    info["gen"]["received"] = tp.received
+    H = genqp._x_operator(local_gen[0], gram, torch.ones(b, device=dev), 1.0,
+                          ops)
+    del gram, local_gen
+    info["gen"]["fact_ms"] = wall(lambda: ops.inverse(H))[1]
+    del H
+
+    # 25. The interior points (Experiment 1's OptNetConfig), each also
+    # without polish, to count the elements whose polish was rejected.
+    cfg_ip = OptNetConfig(tol=tol, max_iters=30, symmetrize=False)
+
+    def ip(key, fn, config):
+        run(key, lambda: fn(config))
+        arrays[key + "_raw_x"] = fn(dataclasses.replace(
+            config, polish=False)).x.cpu()
+
+    ip("bip", lambda c: solve_box_qp_ip_tp_local(mesh_tp, *local, config=c),
+       cfg_ip)
+    args18 = _general_ineq_data(n, b, spec["N_INEQ"], dev)
+    _check(float(args18[0].double().sum()) == spec["q18_sum"],
+           "the worker's phase-18 data differ from the parent's")
+    ip("schur", lambda c: solve_qp_optnet_tp(mesh_tp, *args18, config=c),
+       cfg_ip)
+    del args18
+    dc = create_qp_data(spec["N_COND"], b, seed=0, dtype=torch.float32,
+                        device=dev)
+    args_c = (*dc[:4], *dc.with_G_h())
+    ip("cond", lambda c: solve_qp_optnet_tp(mesh_tp, *args_c, config=c),
+       dataclasses.replace(cfg_ip, factor="condensed"))
+    del dc, args_c
+
+    # 26. The box ADMM: polish on phase 13's requests (the rank's blocks);
+    # phase 8's straggler batch lock-step, with Anderson and with the
+    # early-exit step, whose frozen rows are checked in every call.
+    cfg = BoxQPConfig(eps_abs=tol, eps_rel=tol, symmetrize=False)
+    sol = run("pol", lambda: solve_box_qp_tp_local(
+        mesh_tp, *local, config=dataclasses.replace(cfg, polish=True)))
+    info["pol"]["accepted"] = int(sol.polished.sum())
+    data8 = _straggler_data(n, b, spec["N_HARD"], dev)
+    _check(float(data8[0].double().sum()) == spec["q8_sum"],
+           "the worker's straggler batch differs from phase 8's")
+    base8 = dict(eps_abs=tol, eps_rel=tol, symmetrize=False, max_iters=4000)
+    run("lock8", lambda: solve_box_qp_tp(mesh_tp, *data8,
+                                         config=BoxQPConfig(**base8)))
+    run("aa8", lambda: solve_box_qp_tp(mesh_tp, *data8, config=BoxQPConfig(
+        acceleration=spec["AA_WINDOW"], **base8)))
+    gemv = tpm._ColumnKKT.gemv
+    changed = torch.zeros((), dtype=torch.long, device=dev)
+
+    def spy(self, P, r, x, converged):
+        out = gemv(self, P, r, x, converged)
+        changed.add_(torch.where(converged[:, None], out != x, False).sum())
+        return out
+
+    tpm._ColumnKKT.gemv = spy
+    try:
+        run("early8", lambda: solve_box_qp_tp(mesh_tp, *data8,
+                                              config=BoxQPConfig(
+                                                  use_pallas_step=True,
+                                                  **base8)))
+    finally:
+        tpm._ColumnKKT.gemv = gemv
+    info["early8"]["frozen_bitwise"] = int(changed) == 0
 
 
 if __name__ == "__main__":

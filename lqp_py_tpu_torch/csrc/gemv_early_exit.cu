@@ -1,6 +1,9 @@
 // ADMM x-update GEMV with per-element early exit: out[b] = P[b] @ r[b] for
 // elements that have not converged, out[b] = x_prev[b] (bitwise) for those
-// that have, whose P panel is never read.
+// that have, whose P panel is never read.  P[b] is m x n: square (m = n) in
+// the one-process solve, the rank's (N, L) column block of P in the
+// column-sharded (tp) solve (lqp_py_tpu_torch/parallel/tp.py), which sums
+// the ranks' partial products afterwards.
 //
 // Replaces lqp_py_tpu/ops/pallas/admm_step.py::_kernel / gemv_early_exit,
 // the GEMV inside fused_admm_step that the box-QP solver runs once per
@@ -11,7 +14,7 @@
 // predicated.  Nothing of that carries over: on Hopper a block that returns
 // before its first load simply never reads its panel.
 //
-// Design: grid (ceil(n / kRows), B), 256 threads (8 warps); a batch of more
+// Design: grid (ceil(m / kRows), B), 256 threads (8 warps); a batch of more
 // than 65535 elements (the grid's y limit) is launched in chunks of at most
 // that many on the same stream, each reading its own slice.  Each block reads
 // its element's flag from device memory (no host read).  A frozen block
@@ -25,9 +28,9 @@
 // Blocks of 32 rows (four per warp) read P faster than blocks of 64 on the
 // H100; 16 gain little more and cost more when the whole batch is frozen.
 //
-// Bound: device-memory bytes, 4 n^2 per *active* element: 537 MB at B = 128,
-// n = 1024 with none converged, about 160 us at 3.35 TB/s.  A converged
-// element costs 4 n bytes of x_prev read and out written.
+// Bound: device-memory bytes, 4 m n per *active* element: 537 MB at B = 128,
+// m = n = 1024 with none converged, about 160 us at 3.35 TB/s.  A converged
+// element costs 4 m bytes of x_prev read and out written.
 //
 // A persistent grid balanced over the active rows, streaming P through a
 // ring of bulk-TMA stages, was measured against this design on the H100 and
@@ -52,11 +55,11 @@ __global__ void __launch_bounds__(kThreads)
 gemv_early_exit_kernel(const float* __restrict__ P, const float* __restrict__ r,
                        const float* __restrict__ x_prev,
                        const uint8_t* __restrict__ converged,
-                       float* __restrict__ out, int n) {
+                       float* __restrict__ out, int m, int n) {
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, n - row0);
-  const size_t vec0 = (size_t)b * n + row0;  // this block's first out entry
+  const int rows = min(kRows, m - row0);
+  const size_t vec0 = (size_t)b * m + row0;  // this block's first out entry
 
   if (converged[b]) {
     for (int i = threadIdx.x; i < rows; i += kThreads)
@@ -72,7 +75,7 @@ gemv_early_exit_kernel(const float* __restrict__ P, const float* __restrict__ r,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const float* Pb = P + (size_t)b * n * n;
+  const float* Pb = P + (size_t)b * m * n;
   for (int i = warp; i < rows; i += kWarps) {
     const float* row = Pb + (size_t)(row0 + i) * n;
     float acc = 0.0f;
@@ -97,47 +100,57 @@ gemv_early_exit_kernel(const float* __restrict__ P, const float* __restrict__ r,
 
 template <bool kVec>
 int launch(const float* P, const float* r, const float* x_prev,
-           const uint8_t* converged, float* out, int B, int n, size_t smem,
-           cudaStream_t s) {
+           const uint8_t* converged, float* out, int B, int m, int n,
+           size_t smem, cudaStream_t s) {
   if (smem > kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(
         gemv_early_exit_kernel<kVec>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((n + kRows - 1) / kRows, B);
+  dim3 grid((m + kRows - 1) / kRows, B);
   gemv_early_exit_kernel<kVec><<<grid, kThreads, smem, s>>>(
-      P, r, x_prev, converged, out, n);
+      P, r, x_prev, converged, out, m, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// P: B contiguous n x n f32 matrices; r, x_prev, out: contiguous (B, n) f32;
-// converged: B bytes (0 = active).  All on the current device.  Launches on
-// stream s and returns cudaGetLastError(); it does not synchronise.
+// P: B contiguous m x n f32 matrices; r: contiguous (B, n) f32; x_prev, out:
+// contiguous (B, m) f32; converged: B bytes (0 = active).  All on the current
+// device.  Launches on stream s and returns cudaGetLastError(); it does not
+// synchronise.
+extern "C" int gemv_early_exit_rect_f32(const float* P, const float* r,
+                                        const float* x_prev,
+                                        const uint8_t* converged, float* out,
+                                        int B, int m, int n, cudaStream_t s) {
+  if (B < 0 || m < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || m == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)n * sizeof(float);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // m * n * 4 is a multiple of 16 where n % 4 == 0, so every row and every
+  // chunk's P keep the first one's alignment.
+  const bool vec = (n % 4 == 0) && ((uintptr_t)P % 16 == 0);
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = min(kMaxGridY, B - b0);
+    const size_t v0 = (size_t)b0 * n;        // the chunk's first r entry
+    const size_t x0 = (size_t)b0 * m;        // the chunk's first out entry
+    const int rc =
+        vec ? launch<true>(P + x0 * n, r + v0, x_prev + x0, converged + b0,
+                           out + x0, nb, m, n, smem, s)
+            : launch<false>(P + x0 * n, r + v0, x_prev + x0, converged + b0,
+                            out + x0, nb, m, n, smem, s);
+    if (rc != (int)cudaSuccess) return rc;
+  }
+  return (int)cudaSuccess;
+}
+
+// The square form (m = n), the one-process solve's: the same launch.
 extern "C" int gemv_early_exit_f32(const float* P, const float* r,
                                    const float* x_prev,
                                    const uint8_t* converged, float* out,
                                    int B, int n, cudaStream_t s) {
-  if (B < 0 || n < 0) return (int)cudaErrorInvalidValue;
-  if (B == 0 || n == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)n * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  // n * n * 4 is a multiple of 16 where n % 4 == 0, so every chunk's P
-  // keeps the first one's alignment.
-  const bool vec = (n % 4 == 0) && ((uintptr_t)P % 16 == 0);
-  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
-    const int nb = min(kMaxGridY, B - b0);
-    const size_t v0 = (size_t)b0 * n;        // the chunk's first vector entry
-    const int rc =
-        vec ? launch<true>(P + v0 * n, r + v0, x_prev + v0, converged + b0,
-                           out + v0, nb, n, smem, s)
-            : launch<false>(P + v0 * n, r + v0, x_prev + v0, converged + b0,
-                            out + v0, nb, n, smem, s);
-    if (rc != (int)cudaSuccess) return rc;
-  }
-  return (int)cudaSuccess;
+  return gemv_early_exit_rect_f32(P, r, x_prev, converged, out, B, n, n, s);
 }
 
 // Registers per thread and local-memory bytes per thread of the vector path

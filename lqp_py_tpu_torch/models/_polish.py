@@ -14,6 +14,11 @@ stationarity identity: a negative one means the guess was wrong for that
 coordinate, and the caller then keeps its own iterate.
 ``gen_penalty_polish`` pins rows of ``G x <= h`` and returns the
 accumulated AL estimates.
+
+Both take an ``ops`` operator (``ops/operator.py``): the one-process solve
+holds Q, A and G whole (``DENSE``), a column-sharded solve passes the rank's
+column blocks and ``parallel/tp_ops.Columns``.  The refinement arithmetic
+is the same code for both.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from lqp_py_tpu_torch.ops.linalg import _mv, _schur_pieces, spd_inverse_fast
+from lqp_py_tpu_torch.ops.linalg import _mv
+from lqp_py_tpu_torch.ops.operator import DENSE
 
 
 class PolishResult(NamedTuple):
@@ -46,43 +52,37 @@ def al_lam_threshold(dtype) -> float:
     return 4.0 * _penalty_weight(dtype) * torch.finfo(dtype).eps
 
 
-def _schur(Hinv, A):
-    """``W = H^-1 A^T`` and ``Sinv = (A W)^-1``."""
-    W = Hinv @ A.mT
-    return W, _schur_pieces(A, W, 0.0)
-
-
-def _refined_solve(residual, Hinv, A, b, W, Sinv, rhs):
+def _refined_solve(ops, residual, Hinv, A, b, W, Sinv, rhs):
     """x (and y) of ``[[H, A^T], [A, 0]] [x; y] = [rhs; b]`` through
     ``Hinv`` and the Schur pieces, then two full-KKT refinement passes;
     ``residual(rhs, x)`` is ``rhs - H x`` with the exact H."""
     if A is None:
-        x, y = _mv(Hinv, rhs), None
+        x, y = ops.mv(Hinv, rhs), None
     else:
-        t = _mv(Hinv, rhs)
-        y = _mv(Sinv, _mv(A, t) - b)
+        t = ops.mv(Hinv, rhs)
+        y = _mv(Sinv, ops.mv(A, t) - b)
         x = t - _mv(W, y)
     for _ in range(2):
         resid_x = residual(rhs, x)
         if A is None:
-            x = x + _mv(Hinv, resid_x)
+            x = x + ops.mv(Hinv, resid_x)
         else:
-            resid_x = resid_x - _mv(A.mT, y)
-            resid_b = b - _mv(A, x)
-            t = _mv(Hinv, resid_x)
-            dy = _mv(Sinv, _mv(A, t) - resid_b)
+            resid_x = resid_x - ops.mtv(A, y)
+            resid_b = b - ops.mv(A, x)
+            t = ops.mv(Hinv, resid_x)
+            dy = _mv(Sinv, ops.mv(A, t) - resid_b)
             x = x + t - _mv(W, dy)
             y = y + dy
     return x, y
 
 
 def box_penalty_polish(Q, p, A, b, lb, ub, act_lo, act_hi,
-                       refine_steps: int = 3) -> PolishResult:
+                       refine_steps: int = 3, ops=DENSE) -> PolishResult:
     """Penalty-pinned re-solve of ``min 1/2 x'Qx + p'x, Ax = b`` with the
     ``act_lo``/``act_hi`` coordinates pulled onto their bound.
 
     ``lb``/``ub`` may be infinite off the active sets (masked out before
-    any multiply)."""
+    any multiply).  Q and A as ``ops`` holds them (whole by default)."""
     w = _penalty_weight(Q.dtype)
     zero = torch.zeros((), dtype=Q.dtype, device=Q.device)
     w_lo = torch.where(act_lo, w, zero)
@@ -91,29 +91,29 @@ def box_penalty_polish(Q, p, A, b, lb, ub, act_lo, act_hi,
     ub_act = torch.where(act_hi, ub, zero)
     w_d = w_lo + w_hi
 
-    Hinv = spd_inverse_fast(Q + torch.diag_embed(w_d))
+    Hinv = ops.inverse(ops.add_diag(Q.clone(), w_d))
     W = Sinv = None
     if A is not None:
-        W, Sinv = _schur(Hinv, A)
+        W, Sinv = ops.schur(Hinv, A)
 
     def residual(rhs, x):
-        return rhs - _mv(Q, x) - w_d * x
+        return rhs - ops.mv(Q, x) - w_d * x
 
     l_lo = torch.zeros_like(p)
     l_hi = torch.zeros_like(p)
     x = y = None
     for _ in range(max(refine_steps, 1)):
         rhs = -p + w_lo * lb_act + w_hi * ub_act + l_lo - l_hi
-        x, y = _refined_solve(residual, Hinv, A, b, W, Sinv, rhs)
+        x, y = _refined_solve(ops, residual, Hinv, A, b, W, Sinv, rhs)
         l_lo = l_lo + w_lo * (lb_act - x)
         l_hi = l_hi + w_hi * (x - ub_act)
 
     # Multipliers read off stationarity at the polished point
     # (lam_lo - lam_hi = Qx + p + A'y on the active set).  A pin (active
     # on both sides) takes either sign, split by relu.
-    s = _mv(Q, x) + p
+    s = ops.mv(Q, x) + p
     if A is not None:
-        s = s + _mv(A.mT, y)
+        s = s + ops.mtv(A, y)
     both = act_lo & act_hi
     zv = torch.zeros_like(p)
     lam_lo = torch.where(act_lo, torch.where(both, torch.clamp(s, min=0.0),
@@ -130,31 +130,31 @@ class GenPolishResult(NamedTuple):
 
 
 def gen_penalty_polish(Q, p, A, b, G, h, act,
-                       refine_steps: int = 3) -> GenPolishResult:
+                       refine_steps: int = 3, ops=DENSE) -> GenPolishResult:
     """General-inequality variant: pin the ``act`` rows of ``G x <= h`` as
     equalities by penalty (``H = Q + w G_act' G_act``) and AL updates.
     The returned ``lam`` is the accumulated AL estimate, accurate to about
-    w * eps and negative on rows where the guess was wrong."""
+    w * eps and negative on rows where the guess was wrong.  Q, A and G as
+    ``ops`` holds them."""
     w = _penalty_weight(Q.dtype)
     zero = torch.zeros((), dtype=Q.dtype, device=Q.device)
     wa = torch.where(act, w, zero)                        # (B, m)
     h_act = torch.where(act, h, zero)
 
-    Gw = G * wa[..., :, None]                             # diag(wa) G
-    Hinv = spd_inverse_fast(Q + Gw.mT @ G)
+    Hinv = ops.inverse(Q + ops.gram(G * wa[..., :, None], G))
     W = Sinv = None
     if A is not None:
-        W, Sinv = _schur(Hinv, A)
+        W, Sinv = ops.schur(Hinv, A)
 
     def residual(rhs, x):
-        return rhs - _mv(Q, x) - _mv(G.mT, wa * _mv(G, x))
+        return rhs - ops.mv(Q, x) - ops.mtv(G, wa * ops.mv(G, x))
 
     lam = torch.zeros_like(h)
     x = y = None
     for _ in range(max(refine_steps, 1)):
         # Stationarity of the AL subproblem:
         # Qx + p + A'y + G'[act * (l + w (Gx - h))] = 0.
-        rhs = -p + _mv(G.mT, wa * h_act - torch.where(act, lam, zero))
-        x, y = _refined_solve(residual, Hinv, A, b, W, Sinv, rhs)
-        lam = lam + wa * (_mv(G, x) - h_act)
+        rhs = -p + ops.mtv(G, wa * h_act - torch.where(act, lam, zero))
+        x, y = _refined_solve(ops, residual, Hinv, A, b, W, Sinv, rhs)
+        lam = lam + wa * (ops.mv(G, x) - h_act)
     return GenPolishResult(x=x, y=y, lam=torch.where(act, lam, zero))

@@ -29,7 +29,8 @@ from lqp_py_tpu_torch.models import box_qp_grad as bgrads
 from lqp_py_tpu_torch.models._polish import box_penalty_polish
 from lqp_py_tpu_torch.models.optnet import _d_cap, _inf_norm, _step_length
 from lqp_py_tpu_torch.ops import collective
-from lqp_py_tpu_torch.ops.linalg import _mv, _schur_pieces, spd_inverse_fast
+from lqp_py_tpu_torch.ops.linalg import _mv
+from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import BoxQPSolution, as_vector, like_layout
 
@@ -40,23 +41,20 @@ class _Factors(NamedTuple):
     Sinv: Optional[torch.Tensor]
 
 
-def _factor(Q, A, diag, int_reg):
+def _factor(ops, Q, A, diag, int_reg):
     """Inverse of ``Q + diag(diag) + int_reg I`` plus the A-Schur pieces."""
-    H = Q.clone()
-    H.diagonal(dim1=-2, dim2=-1).add_(diag + int_reg)
-    Hinv = spd_inverse_fast(H)
+    Hinv = ops.inverse(ops.add_diag(Q.clone(), diag + int_reg))
     if A is None:
         return _Factors(Hinv=Hinv, W=None, Sinv=None)
-    W = Hinv @ A.mT
-    return _Factors(Hinv=Hinv, W=W, Sinv=_schur_pieces(A, W, int_reg))
+    return _Factors(Hinv, *ops.schur(Hinv, A, int_reg))
 
 
-def _solve(fc: _Factors, A, rhs1, ry):
+def _solve(ops, fc: _Factors, A, rhs1, ry):
     """[[H, A'], [A, 0]] [dx; dy] = [rhs1; -ry] through the factors."""
-    t = _mv(fc.Hinv, rhs1)
+    t = ops.mv(fc.Hinv, rhs1)
     if A is None:
         return t, None
-    dy = _mv(fc.Sinv, _mv(A, t) + ry)
+    dy = _mv(fc.Sinv, ops.mv(A, t) + ry)
     return t - _mv(fc.W, dy), dy
 
 
@@ -78,9 +76,15 @@ def solve_box_qp_ip(Q, p, A=None, b=None, lb=None, ub=None,
     """Forward box-IP solve.  Shapes as ``solve_box_qp``; bounds must be
     finite.  Returns a BoxQPSolution with ``z = clip(x, lb, ub)``, ``u`` the
     net bound dual ``z_hi - z_lo`` and ``rho`` all ones."""
+    return _solve_box_ip(DENSE, Q, p, A, b, lb, ub, config)
+
+
+def _solve_box_ip(ops, Q, p, A, b, lb, ub, config) -> BoxQPSolution:
+    """``solve_box_qp_ip`` with Q and A as ``ops`` holds them
+    (``ops/operator.py``)."""
     Q = torch.as_tensor(Q)
     if config.symmetrize:
-        Q = 0.5 * (Q + Q.mT)
+        Q = ops.symmetrize(Q)
     dtype = Q.dtype
     p = as_vector(p, "p").to(dtype)
     lb = as_vector(lb, "lb").to(dtype)
@@ -98,8 +102,8 @@ def solve_box_qp_ip(Q, p, A=None, b=None, lb=None, ub=None,
     # Init: one solve at d = 1 on both sides (H = Q + 2I); rhs1 = -p + G'h
     # with G'h = lb + ub; then s shifted to >= 1, z = 1.
     ones = torch.ones_like(p)
-    x0, y0 = _solve(_factor(Q, A, 2.0 * ones, int_reg), A, -p + (lb + ub),
-                    None if b is None else -b)
+    x0, y0 = _solve(ops, _factor(ops, Q, A, 2.0 * ones, int_reg), A,
+                    -p + (lb + ub), None if b is None else -b)
     s_lo0, s_hi0 = x0 - lb, ub - x0
     shift_s = torch.clamp(1.0 - torch.minimum(s_lo0.amin(dim=-1),
                                               s_hi0.amin(dim=-1)), min=0.0)
@@ -112,14 +116,14 @@ def solve_box_qp_ip(Q, p, A=None, b=None, lb=None, ub=None,
     d_cap = _d_cap(dtype)
 
     def body(st: _State) -> _State:
-        Qx = _mv(Q, st.x)
+        Qx = ops.mv(Q, st.x)
         # rx = Qx + p + G'z with G'z = z_hi - z_lo (+ A'y).
         rx = Qx + p - st.z_lo + st.z_hi
         ry = Aty = None
         if A is not None:
-            Aty = _mv(A.mT, st.y)
+            Aty = ops.mtv(A, st.y)
             rx = rx + Aty
-            ry = _mv(A, st.x) - b
+            ry = ops.mv(A, st.x) - b
         # rz = Gx + s - h: lo rows -x + s_lo + lb, hi rows x + s_hi - ub.
         rz_lo = -st.x + st.s_lo + lb
         rz_hi = st.x + st.s_hi - ub
@@ -146,13 +150,13 @@ def solve_box_qp_ip(Q, p, A=None, b=None, lb=None, ub=None,
 
         d_lo = torch.clamp(st.z_lo / st.s_lo, 1.0 / d_cap, d_cap)
         d_hi = torch.clamp(st.z_hi / st.s_hi, 1.0 / d_cap, d_cap)
-        fc = _factor(Q, A, d_lo + d_hi, int_reg)
+        fc = _factor(ops, Q, A, d_lo + d_hi, int_reg)
 
         def newton(rx_, rs_lo, rs_hi, rz_lo_, rz_hi_, ry_):
             # rhs1 = -rx + G'(rs - d rz) with G'v = v_hi - v_lo.
             rhs1 = (-rx_ - (rs_lo - d_lo * rz_lo_)
                     + (rs_hi - d_hi * rz_hi_))
-            dx, dy = _solve(fc, A, rhs1, ry_)
+            dx, dy = _solve(ops, fc, A, rhs1, ry_)
             ds_lo = -rz_lo_ + dx          # ds = -rz - G dx
             ds_hi = -rz_hi_ - dx
             return (dx, ds_lo, ds_hi, -rs_lo - d_lo * ds_lo,
@@ -205,7 +209,7 @@ def solve_box_qp_ip(Q, p, A=None, b=None, lb=None, ub=None,
             # residual is part of the acceptance test.
             v = torch.maximum(lb - xv, xv - ub).amax(dim=-1)
             if A is not None:
-                v = torch.maximum(v, (_mv(A, xv) - b).abs().amax(dim=-1))
+                v = torch.maximum(v, (ops.mv(A, xv) - b).abs().amax(dim=-1))
             return v
 
         thr = eps_abs + eps_rel * torch.maximum(lb_norm, ub_norm)
@@ -215,14 +219,14 @@ def solve_box_qp_ip(Q, p, A=None, b=None, lb=None, ub=None,
         act_lo = st.z_lo > (st.x - lb)
         act_hi = st.z_hi > (ub - st.x)
         pol = box_penalty_polish(Q, p, A, b, lb, ub, act_lo=act_lo,
-                                 act_hi=act_hi)
+                                 act_hi=act_hi, ops=ops)
         # Round 2 repairs the guess: release bounds whose multiplier came
         # back negative, add bounds the round-1 point violates.
         thr_c = thr[..., None]
         act_lo2 = (act_lo & (pol.lam_lo >= -thr_c)) | (lb - pol.x > thr_c)
         act_hi2 = (act_hi & (pol.lam_hi >= -thr_c)) | (pol.x - ub > thr_c)
         pol2 = box_penalty_polish(Q, p, A, b, lb, ub, act_lo=act_lo2,
-                                  act_hi=act_hi2)
+                                  act_hi=act_hi2, ops=ops)
 
         def _ok(pr):
             lam_min = torch.minimum(pr.lam_lo, pr.lam_hi).amin(dim=-1)

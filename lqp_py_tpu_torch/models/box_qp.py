@@ -43,7 +43,9 @@ from lqp_py_tpu_torch.models._polish import box_penalty_polish
 from lqp_py_tpu_torch.ops import anderson, collective
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops import scaling as sca
+from lqp_py_tpu_torch.ops.kernels import admm_step
 from lqp_py_tpu_torch.ops.kernels.admm_step import fused_admm_step
+from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import BoxQPSolution, as_vector
 
@@ -283,7 +285,8 @@ def solve_box_qp_prepared(prep: BoxQPPrepared, p,
 class _KKTOperator:
     """The ADMM loop's access to its reduced KKT operator: factorize the
     operand ``H0 = D Q D + rho0 I`` shifted to another rho, apply the
-    factored inverse in the x-update, and multiply by ``A^T``.  This one
+    factored inverse in the x-update (lock-step, or the early-exit GEMV on
+    ``P``), multiply by ``A^T``, and hand the polish its operands.  This one
     holds the whole lane-padded operand; ``parallel/tp.py`` holds a column
     block of it and adds the collectives.
 
@@ -328,10 +331,24 @@ class _KKTOperator:
             y = y - lin._mv(f.WS, lin._mv(f.W.mT, r))
         return y + q
 
+    def gemv(self, P, r, x, converged):
+        """The early-exit step's ``P r``, ``x`` where converged."""
+        return admm_step.gemv_early_exit(P, r, x, converged)
+
     def at_mv(self, *vs):
         """``A^T v`` (B, n) for each (B, m) ``v``."""
         At = self.As[:, :, :self.n].mT
         return tuple(lin._mv(At, v) for v in vs)
+
+    def polish_operands(self):
+        """``(ops, Qs, As)`` of the polish: the scaled Q rebuilt from the
+        factorization operand, as the JAX package does (it cancels on the
+        diagonal in float32 when rho0 is near rho_max; kept for parity,
+        ROADMAP's reference faults), and A without its pad columns."""
+        n = self.n
+        Qs = self.H0[:, :n, :n] - self.rho0[:, None, None] * torch.eye(
+            n, dtype=self.H0.dtype, device=self.H0.device)
+        return DENSE, Qs, None if self.As is None else self.As[:, :, :n]
 
 
 def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
@@ -343,8 +360,7 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
     factors of ``H0`` (prepared solve) or None (factorize here).  A
     preparation made at another alignment than this solve's is resized:
     the identity pad is extended or sliced off.  ``kkt`` replaces the
-    whole-operator ``_KKTOperator`` (``parallel/tp.py``'s column block,
-    which takes neither the early-exit step, nor polish, nor Anderson)."""
+    whole-operator ``_KKTOperator`` (``parallel/tp.py``'s column block)."""
     B, n = ps.shape
     dtype, device = ps.dtype, ps.device
     cs = config.resolved_check_interval(n)
@@ -470,7 +486,7 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
                     z_prev = z
                     x, z, u, r = fused_admm_step(
                         factors.P, r, x, z, u, ps_p, q, lbs_p, ubs_p, rho,
-                        is_optimal, alpha=a)
+                        is_optimal, alpha=a, gemv=kkt.gemv)
                 # r now feeds the next iteration.  The r that produced x is
                 # rebuilt by inverting the (relaxed) dual update
                 # u = u_prev + (a x + (1 - a) z_prev - z); frozen elements
@@ -627,8 +643,7 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
     polished = None
     if config.polish:
         xs, zs, lam_lo_s, lam_hi_s, nus, polished = _polish(
-            config, kkt.H0, rho0, ps, None if As is None else As[:, :, :n],
-            bs, lbs, ubs, E, xs, zs, us,
+            config, *kkt.polish_operands(), ps, bs, lbs, ubs, E, xs, zs, us,
             lam_lo_s, lam_hi_s, nus, pinf, m_aa)
 
     trace_out = None
@@ -646,19 +661,14 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         residual_trace=trace_out, polished=polished)
 
 
-def _polish(config, H0, rho0, ps, As_u, bs, lbs, ubs, E, xs, zs, us,
+def _polish(config, ops, Qs_u, As_u, ps, bs, lbs, ubs, E, xs, zs, us,
             lam_lo_s, lam_hi_s, nus, pinf, m_aa):
     """Active-set polish of the final iterate on the scaled problem, taken
     per element where it is no less feasible than the iterate and its
-    active multipliers are >= -eps_abs.  Returns the (possibly polished)
+    active multipliers are >= -eps_abs.  ``ops``, ``Qs_u``, ``As_u``: the
+    KKT operator's ``polish_operands``.  Returns the (possibly polished)
     ``xs, zs, lam_lo_s, lam_hi_s, nus`` and the accepted mask."""
-    n = xs.shape[-1]
     dtype = xs.dtype
-    # The scaled Q rebuilt from the factorization operand, as the JAX
-    # package does (it cancels on the diagonal in float32 when rho0 is near
-    # rho_max; kept for parity, ROADMAP's reference faults).
-    Qs_u = H0[:, :n, :n] - rho0[:, None, None] * torch.eye(
-        n, dtype=dtype, device=xs.device)
     # Proximity at tolerance scale (the scaled problem is equilibrated).
     prox = 10 * torch.tensor(config.eps_abs + config.eps_rel, dtype=dtype,
                               device=xs.device)
@@ -678,7 +688,7 @@ def _polish(config, H0, rho0, ps, As_u, bs, lbs, ubs, E, xs, zs, us,
         act_hi = (us > 0) & (ubs - zs <= prox)
         lbs_pol, ubs_pol = lbs, ubs
     pol = box_penalty_polish(Qs_u, ps, As_u, bs, lbs_pol, ubs_pol, act_lo,
-                             act_hi)
+                             act_hi, ops=ops)
     thr = torch.tensor(config.eps_abs, dtype=dtype, device=xs.device)
 
     def viol(xv):
@@ -686,7 +696,7 @@ def _polish(config, H0, rho0, ps, As_u, bs, lbs, ubs, E, xs, zs, us,
         v_hi = torch.where(torch.isfinite(ubs), xv - ubs, -math.inf)
         v = torch.maximum(v_lo, v_hi).amax(dim=-1)
         if As_u is not None:
-            eq = lin._mv(As_u, xv) - bs
+            eq = ops.mv(As_u, xv) - bs
             v = torch.maximum(v, eq.abs().amax(dim=-1))
         return v
 

@@ -48,24 +48,21 @@ from lqp_py_tpu_torch.models._stateful import StatefulQP
 from lqp_py_tpu_torch.ops import anderson, collective
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops.linalg import _mv
+from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import QPSolution, as_vector, like_layout
 
 _ZERO_CLAMP = 1e-16
 
 
-def _mtv(M, v):
-    return _mv(M.mT, v)
-
-
 def _inf_norm(v):
     return v.abs().amax(dim=-1)
 
 
-def _row_equilibrate(M, rhs):
+def _row_equilibrate(M, rhs, ops=DENSE):
     """``(E M, E rhs, E)`` with ``E`` the inverse row inf-norms (rows of
     zeros take the mean norm)."""
-    norms = torch.linalg.vector_norm(M, ord=math.inf, dim=-1)
+    norms = ops.row_absmax(M)
     fill = torch.clamp(norms.mean(dim=-1, keepdim=True), min=1e-6)
     norms = torch.where(norms <= 0, fill.expand_as(norms), norms)
     E = 1.0 / norms
@@ -108,39 +105,40 @@ class GenQPPrepared:
     key: tuple = ()
 
 
-def _x_operator(Qs, GtG, rho, sigma):
+def _x_operator(Qs, GtG, rho, sigma, ops=DENSE):
     """``Qs + rho GtG + sigma I``."""
     H = rho[..., None, None] * GtG
     H += Qs
-    H.diagonal(dim1=-2, dim2=-1).add_(sigma)
-    return H
+    return ops.add_diag(H, sigma)
 
 
-def _gen_prepare(Q, A, b, G, h, config) -> GenQPPrepared:
-    """Everything in the forward solve that does not depend on ``p``."""
+def _gen_prepare(Q, A, b, G, h, config, ops=DENSE) -> GenQPPrepared:
+    """Everything in the forward solve that does not depend on ``p``.  Q, A
+    and G as ``ops`` holds them (``ops/operator.py``; whole by default)."""
     if G is None:
         raise ValueError("solve_qp_gen requires G/h; use solve_qp_eqcon")
     Q = torch.as_tensor(Q)
     if config.symmetrize:
-        Q = 0.5 * (Q + Q.mT)
+        Q = ops.symmetrize(Q)
     kw = dict(dtype=Q.dtype, device=Q.device)
     G = torch.as_tensor(G).to(**kw)
     h = as_vector(h, "h").to(**kw)
     A = None if A is None else torch.as_tensor(A).to(**kw)
     b = None if b is None else as_vector(b, "b").to(**kw)
-    B, n = Q.shape[0], Q.shape[-1]
+    B, n = Q.shape[0], Q.shape[-2]
     k = G.shape[-2]
 
     # Scaling: Jacobi D from Q's columns, row equilibration of A and G.
     if config.scale:
-        Q_norm = torch.linalg.vector_norm(Q, ord=math.inf, dim=-2)
+        Q_norm = ops.col_absmax(Q)
         fill = torch.clamp(Q_norm.mean(dim=-1, keepdim=True), min=1e-6)
         Q_norm = torch.where(Q_norm <= 0, fill.expand_as(Q_norm), Q_norm)
         D = torch.sqrt(1.0 / Q_norm)
-        Qs = D[..., :, None] * Q * D[..., None, :]
-        Gs, hs, EG = _row_equilibrate(G * D[..., None, :], h)
+        Dc = ops.cols(D)[..., None, :]
+        Qs = D[..., :, None] * Q * Dc
+        Gs, hs, EG = _row_equilibrate(G * Dc, h, ops)
         if A is not None:
-            As, bs, EA = _row_equilibrate(A * D[..., None, :], b)
+            As, bs, EA = _row_equilibrate(A * Dc, b, ops)
         else:
             As, bs, EA = None, None, None
     else:
@@ -150,17 +148,16 @@ def _gen_prepare(Q, A, b, G, h, config) -> GenQPPrepared:
         Qs, Gs, hs, As, bs = Q, G, h, A, b
 
     if config.rho is None:
-        q_fro = torch.sqrt((Qs * Qs).sum(dim=(-1, -2)))
+        q_fro = torch.sqrt(ops.sum((Qs * Qs).sum(dim=(-1, -2))))
         rho0 = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
                            config.rho_min, config.rho_max)
     else:
         rho0 = torch.full((B,), float(config.rho), **kw)
 
-    GtG = Gs.mT @ Gs
-    # The operand is already shifted (rho None): H = Qs + rho0 GtG + sigma I.
-    factors0 = lin.factorize_kkt(
-        _x_operator(Qs, GtG, rho0, float(config.sigma)), None, As,
-        mode="inverse")
+    GtG = ops.gram(Gs)
+    # The operand is already shifted: H = Qs + rho0 GtG + sigma I.
+    factors0 = ops.factorize(
+        _x_operator(Qs, GtG, rho0, float(config.sigma), ops), As)
     return GenQPPrepared(Qs=Qs, As=As, bs=bs, Gs=Gs, hs=hs, D=D, EG=EG,
                          EA=EA, rho0=rho0, GtG=GtG, factors=factors0,
                          key=_gen_prep_key(config))
@@ -211,8 +208,9 @@ def solve_qp_gen(Q, p, A=None, b=None, G=None, h=None,
 
 
 def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
-                      warm_start) -> QPSolution:
-    """The splitting loop on an already scaled and factorized family."""
+                      warm_start, ops=DENSE) -> QPSolution:
+    """The splitting loop on an already scaled and factorized family, its
+    matrices held as ``ops`` holds them."""
     Qs, As, bs, Gs, hs = prep.Qs, prep.As, prep.bs, prep.Gs, prep.hs
     D, EG, EA, rho0 = prep.D, prep.EG, prep.EA, prep.rho0
     dtype, device = ps.dtype, ps.device
@@ -261,9 +259,9 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
 
     def plain_step(w, u):
         """One splitting iteration: (w, u) -> (x, nu, s, w', u')."""
-        rhs = -ps + _mtv(Gs, rho[..., None] * (hs - w + u))
-        x, nu = lin.kkt_apply(factors, rhs, bs)
-        s = hs - _mv(Gs, x)
+        rhs = -ps + ops.mtv(Gs, rho[..., None] * (hs - w + u))
+        x, nu = ops.kkt_apply(factors, rhs, bs)
+        s = hs - ops.mv(Gs, x)
         # Over-relaxation on the splitting variable; the fixed point (s = w)
         # is unchanged.
         sh = alpha * s + (1.0 - alpha) * w if alpha != 1.0 else s
@@ -284,9 +282,8 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
                 # A rho change rescales the dual estimate u = lambda / rho.
                 u = u * (rho / rho_new)[..., None]
                 rho = rho_new
-                factors = lin.factorize_kkt(
-                    _x_operator(Qs, prep.GtG, rho, sigma), None, As,
-                    mode="inverse")
+                factors = ops.factorize(
+                    _x_operator(Qs, prep.GtG, rho, sigma, ops), As)
                 if m_aa:
                     # A new fixed-point map: reset the updated elements'
                     # history.
@@ -313,13 +310,13 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
         # x-space dual through D.  ``s`` is the last step's h - G x.
         rho_c = rho[..., None]
         primal_error = _inf_norm((s - w) / EG)
-        dual_error = _inf_norm(rho_c * _mtv(Gs, w - w_prev) * D)
+        dual_error = _inf_norm(rho_c * ops.mtv(Gs, w - w_prev) * D)
         tolp_norm = torch.clamp(torch.maximum(_inf_norm(s / EG),
                                               _inf_norm(w / EG)),
                                 min=_ZERO_CLAMP)
-        Qx = _mv(Qs, x)
+        Qx = ops.mv(Qs, x)
         told_norm = torch.clamp(torch.maximum(torch.maximum(
-            _inf_norm(_mtv(Gs, rho_c * u) * D), _inf_norm(Qx * D)), p_norm),
+            _inf_norm(ops.mtv(Gs, rho_c * u) * D), _inf_norm(Qx * D)), p_norm),
             min=_ZERO_CLAMP)
         tol_primal = eps_abs + eps_rel * tolp_norm
         tol_dual = eps_abs + eps_rel * told_norm
@@ -331,12 +328,12 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
         # dl_us = EG dl_s, (G'dl)_us = (Gs'dl_s) / D.
         if config.detect_infeasibility:
             dl = torch.clamp(-rho_c * (u - u_chk), min=0.0)
-            cert = _mtv(Gs, dl) / D
+            cert = ops.mtv(Gs, dl) / D
             dual_scale = _inf_norm(dl * EG)
             support = (hs * dl).sum(dim=-1)
             if As is not None:
                 dnu = nu - nu_chk
-                cert = cert + _mtv(As, dnu) / D
+                cert = cert + ops.mtv(As, dnu) / D
                 dual_scale = torch.maximum(dual_scale, _inf_norm(dnu * EA))
                 support = support + (bs * dnu).sum(dim=-1)
                 nu_chk = nu
@@ -387,7 +384,7 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
     if config.polish:
         xs, lam_hat, slack_hat, nu_hat = _polish(
             Qs, ps, As, bs, Gs, hs, x, w, u, pinf, lam_hat, slack_hat,
-            nu_hat, eps_abs, eps_rel, m_aa)
+            nu_hat, eps_abs, eps_rel, m_aa, ops)
     return QPSolution(
         x=D * xs, lams=lam_hat * EG, slacks=slack_hat / EG,
         nus=None if nu_hat is None else nu_hat * EA, iterations=it,
@@ -396,7 +393,7 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
 
 
 def _polish(Qs, ps, As, bs, Gs, hs, x, w, u, pinf, lam_hat, slack_hat,
-            nu_hat, eps_abs, eps_rel, m_aa):
+            nu_hat, eps_abs, eps_rel, m_aa, ops):
     """Active-set polish on the scaled problem (``gen_penalty_polish``),
     taken per element where it is no less feasible than the iterate and its
     multipliers are nonnegative beyond the AL noise floor.  Returns the
@@ -411,12 +408,12 @@ def _polish(Qs, ps, As, bs, Gs, hs, x, w, u, pinf, lam_hat, slack_hat,
         # alone over-detects barely inactive rows, so the projected slack
         # must be near zero as well.
         act = (u < 0) & (w <= prox)
-    pol = gen_penalty_polish(Qs, ps, As, bs, Gs, hs, act)
+    pol = gen_penalty_polish(Qs, ps, As, bs, Gs, hs, act, ops=ops)
 
     def viol(xv):
-        v = torch.clamp(_mv(Gs, xv) - hs, min=0.0).amax(dim=-1)
+        v = torch.clamp(ops.mv(Gs, xv) - hs, min=0.0).amax(dim=-1)
         if As is not None:
-            v = torch.maximum(v, (_mv(As, xv) - bs).abs().amax(dim=-1))
+            v = torch.maximum(v, (ops.mv(As, xv) - bs).abs().amax(dim=-1))
         return v
 
     # A negative AL multiplier on an active row means the guess was wrong;
@@ -427,8 +424,8 @@ def _polish(Qs, ps, As, bs, Gs, hs, x, w, u, pinf, lam_hat, slack_hat,
     okc = ok[..., None]
     xs = torch.where(okc, pol.x, x)
     lam_hat = torch.where(okc, torch.clamp(pol.lam, min=0.0), lam_hat)
-    slack_hat = torch.where(okc, torch.clamp(hs - _mv(Gs, pol.x), min=0.0),
-                            slack_hat)
+    slack_hat = torch.where(okc, torch.clamp(hs - ops.mv(Gs, pol.x),
+                                             min=0.0), slack_hat)
     if As is not None:
         nu_hat = torch.where(okc, pol.y, nu_hat)
     return xs, lam_hat, slack_hat, nu_hat

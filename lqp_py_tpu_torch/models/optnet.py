@@ -34,7 +34,8 @@ from lqp_py_tpu_torch.models._polish import (al_lam_threshold,
 from lqp_py_tpu_torch.models.box_qp_grad import _outer, _sym_outer
 from lqp_py_tpu_torch.models.eqcon import qp_eqcon, solve_qp_eqcon
 from lqp_py_tpu_torch.ops import collective
-from lqp_py_tpu_torch.ops.linalg import _mv, _schur_pieces, spd_inverse_fast
+from lqp_py_tpu_torch.ops.linalg import _mv, spd_inverse_fast
+from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import QPSolution, as_vector, like_layout
 
@@ -67,14 +68,16 @@ class IPFactors(NamedTuple):
     Rt: torch.Tensor
 
 
-def ip_pre_factor(Q, A, G) -> IPFactors:
-    Qinv = spd_inverse_fast(Q)
-    R = G @ (Qinv @ G.mT)                                 # (B, ni, ni)
+def ip_pre_factor(Q, A, G, ops=DENSE) -> IPFactors:
+    """The d-independent pieces.  Only ``Qinv`` has n columns (held as
+    ``ops`` holds Q); the rest is whole."""
+    Qinv = ops.inverse(Q)
+    R = ops.mm(G, ops.mmt(Qinv, G))                       # (B, ni, ni)
     if A is None:
         return IPFactors(Qinv=Qinv, S11inv=None, T=None, Rt=R)
-    invQ_At = Qinv @ A.mT                                 # (B, n, m)
-    S11inv = spd_inverse_fast(A @ invQ_At)
-    GQA = G @ invQ_At                                     # (B, ni, m)
+    invQ_At = ops.mmt(Qinv, A)                            # (B, n, m)
+    S11inv = spd_inverse_fast(ops.mm(A, invQ_At))
+    GQA = ops.mm(G, invQ_At)                              # (B, ni, m)
     T = GQA @ S11inv
     return IPFactors(Qinv=Qinv, S11inv=S11inv, T=T, Rt=R - T @ GQA.mT)
 
@@ -95,18 +98,18 @@ def _schur_solve(f: IPFactors, Minv, H_eq, H_in):
     return _mv(f.S11inv, H_eq) - _mtv(f.T, w_in), w_in
 
 
-def ip_solve_kkt(f: IPFactors, Minv, d, G, A, rx, rs, rz, ry):
+def ip_solve_kkt(f: IPFactors, Minv, d, G, A, rx, rs, rz, ry, ops=DENSE):
     """One KKT solve of the interior-point system in Schur mode."""
-    invQ_rx = _mv(f.Qinv, rx)
-    H_in = _mv(G, invQ_rx) + rs / d - rz
-    H_eq = None if A is None else _mv(A, invQ_rx) - ry
+    invQ_rx = ops.mv(f.Qinv, rx)
+    H_in = ops.mv(G, invQ_rx) + rs / d - rz
+    H_eq = None if A is None else ops.mv(A, invQ_rx) - ry
     w_eq, w_in = _schur_solve(f, Minv, H_eq, H_in)
     dz = -w_in
     dy = None if w_eq is None else -w_eq
-    g1 = -rx - _mtv(G, dz)
+    g1 = -rx - ops.mtv(G, dz)
     if A is not None:
-        g1 = g1 - _mtv(A, dy)
-    return _mv(f.Qinv, g1), (-rs - dz) / d, dz, dy
+        g1 = g1 - ops.mtv(A, dy)
+    return ops.mv(f.Qinv, g1), (-rs - dz) / d, dz, dy
 
 
 class CondensedFactors(NamedTuple):
@@ -118,21 +121,19 @@ class CondensedFactors(NamedTuple):
     Sinv: Optional[torch.Tensor]
 
 
-def ip_factor_condensed(Q, A, G, d, int_reg) -> CondensedFactors:
+def ip_factor_condensed(Q, A, G, d, int_reg,
+                        ops=DENSE) -> CondensedFactors:
     """Per-iteration factorization of ``H(d) = Q + G^T diag(d) G``; d > 0
     keeps H SPD."""
-    H = Q + G.mT @ (d[..., :, None] * G)
-    H.diagonal(dim1=-2, dim2=-1).add_(int_reg)
-    Hinv = spd_inverse_fast(H)
+    Hinv = ops.inverse(ops.add_diag(Q + ops.gram(G, d[..., :, None] * G),
+                                    int_reg))
     if A is None:
         return CondensedFactors(Hinv=Hinv, W=None, Sinv=None)
-    W = Hinv @ A.mT                                       # (B, n, m)
-    return CondensedFactors(Hinv=Hinv, W=W, Sinv=_schur_pieces(A, W,
-                                                               int_reg))
+    return CondensedFactors(Hinv, *ops.schur(Hinv, A, int_reg))
 
 
 def ip_solve_condensed(fc: CondensedFactors, d, G, A, rx, rs, rz, ry,
-                       Hmv=None, refine: int = 0):
+                       Hmv=None, refine: int = 0, ops=DENSE):
     """Solve the Newton system
 
         Q dx + G^T dz + A^T dy = -rx,   A dx = -ry,
@@ -142,17 +143,17 @@ def ip_solve_condensed(fc: CondensedFactors, d, G, A, rx, rs, rz, ry,
     ``H(d) dx + A^T dy = -rx + G^T (rs - d rz)``.  ``refine`` > 0 applies
     that many iterative-refinement steps ``dx += Hinv (rhs - H dx)`` with
     the residual from the matrix-free product ``Hmv``."""
-    rhs1 = -rx + _mtv(G, rs - d * rz)
-    t = _mv(fc.Hinv, rhs1)
+    rhs1 = -rx + ops.mtv(G, rs - d * rz)
+    t = ops.mv(fc.Hinv, rhs1)
     if A is None:
         dx, dy, rhs_eff = t, None, rhs1
     else:
-        dy = _mv(fc.Sinv, _mv(A, t) + ry)
+        dy = _mv(fc.Sinv, ops.mv(A, t) + ry)
         dx = t - _mv(fc.W, dy)
-        rhs_eff = rhs1 - _mtv(A, dy)
+        rhs_eff = rhs1 - ops.mtv(A, dy)
     for _ in range(refine):
-        dx = dx + _mv(fc.Hinv, rhs_eff - Hmv(dx))
-    ds = -rz - _mv(G, dx)
+        dx = dx + ops.mv(fc.Hinv, rhs_eff - Hmv(dx))
+    ds = -rz - ops.mv(G, dx)
     return dx, ds, -rs - d * ds, dy
 
 
@@ -181,14 +182,14 @@ def _step_length(pairs):
     return (0.999 * torch.clamp(alpha, max=1.0))[..., None]
 
 
-def _condensed_solver(Q, A, G, d, int_reg, refine):
-    fc = ip_factor_condensed(Q, A, G, d, int_reg)
+def _condensed_solver(Q, A, G, d, int_reg, refine, ops=DENSE):
+    fc = ip_factor_condensed(Q, A, G, d, int_reg, ops)
 
     def Hmv(v):
-        return _mv(Q, v) + _mtv(G, d * _mv(G, v)) + int_reg * v
+        return ops.mv(Q, v) + ops.mtv(G, d * ops.mv(G, v)) + int_reg * v
 
     return functools.partial(ip_solve_condensed, fc, d, G, A, Hmv=Hmv,
-                             refine=refine)
+                             refine=refine, ops=ops)
 
 
 class _IPState(NamedTuple):
@@ -212,11 +213,12 @@ def solve_qp_optnet(Q, p, A=None, b=None, G=None, h=None,
 
 
 @solver_precision
-def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
-    """The solve and, in Schur mode, its ``IPFactors`` (else None)."""
+def _solve_qp_optnet_full(Q, p, A, b, G, h, config, ops=DENSE):
+    """The solve and, in Schur mode, its ``IPFactors`` (else None).  Q, A
+    and G as ``ops`` holds them (``ops/operator.py``)."""
     Q = torch.as_tensor(Q)
     if config.symmetrize:
-        Q = 0.5 * (Q + Q.mT)
+        Q = ops.symmetrize(Q)
     dtype = Q.dtype
     p = as_vector(p, "p").to(dtype)
     B, n = p.shape
@@ -245,13 +247,14 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
 
         def make_solver(d):
             return _condensed_solver(Q, A, G, d, int_reg,
-                                     int(config.refine_steps))
+                                     int(config.refine_steps), ops)
     else:
-        f = ip_pre_factor(Q, A, G)
+        f = ip_pre_factor(Q, A, G, ops)
 
         def make_solver(d):
             return functools.partial(ip_solve_kkt, f,
-                                     ip_factor_L22(f, d, int_reg), d, G, A)
+                                     ip_factor_L22(f, d, int_reg), d, G, A,
+                                     ops=ops)
 
     # Init: one KKT solve at d = 1, then s and z shifted to >= 1.
     x0, s0, z0, y0 = make_solver(torch.ones((B, ni), **kw))(
@@ -271,15 +274,15 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
     d_cap = _d_cap(dtype)
 
     def body(st: _IPState, it: int) -> _IPState:
-        Qx = _mv(Q, st.x)
-        Gtz = _mtv(G, st.z)
+        Qx = ops.mv(Q, st.x)
+        Gtz = ops.mtv(G, st.z)
         rx = Qx + Gtz + p
         ry = Aty = None
         if A is not None:
-            Aty = _mtv(A, st.y)
+            Aty = ops.mtv(A, st.y)
             rx = rx + Aty
-            ry = _mv(A, st.x) - b
-        Gx = _mv(G, st.x)
+            ry = ops.mv(A, st.x) - b
+        Gx = ops.mv(G, st.x)
         rz = Gx + st.s - h
         rs = st.z
 
@@ -355,24 +358,24 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
         def _viol(xv):
             # The refinement residual is built from H = Q + G'WG only, so
             # the equality residual is part of the acceptance test.
-            v = torch.clamp(_mv(G, xv) - h, min=0.0).amax(dim=-1)
+            v = torch.clamp(ops.mv(G, xv) - h, min=0.0).amax(dim=-1)
             if A is not None:
-                v = torch.maximum(v, (_mv(A, xv) - b).abs().amax(dim=-1))
+                v = torch.maximum(v, (ops.mv(A, xv) - b).abs().amax(dim=-1))
             return v
 
         thr_acc = eps_abs + eps_rel * h_norm
         viol_ip = _viol(st.x)
         # Classify against slacks recomputed from x (h - Gx), not the IP's
         # slack variables, which drift by the primal residual.
-        act = st.z > (h - _mv(G, st.x))
-        pol = gen_penalty_polish(Q, p, A, b, G, h, act=act)
+        act = st.z > (h - ops.mv(G, st.x))
+        pol = gen_penalty_polish(Q, p, A, b, G, h, act=act, ops=ops)
         # Round 2 repairs the guess: release rows whose AL multiplier came
         # back negative (beyond the accumulation's w*eps noise floor), pin
         # rows the round-1 point violates.
         thr_lam = torch.clamp(thr_acc, min=al_lam_threshold(dtype))
-        viol_rows = (_mv(G, pol.x) - h) > thr_acc[..., None]
+        viol_rows = (ops.mv(G, pol.x) - h) > thr_acc[..., None]
         act2 = (act & (pol.lam >= -thr_lam[..., None])) | viol_rows
-        pol2 = gen_penalty_polish(Q, p, A, b, G, h, act=act2)
+        pol2 = gen_penalty_polish(Q, p, A, b, G, h, act=act2, ops=ops)
 
         def _ok(pr):
             return ((_viol(pr.x) <= torch.maximum(viol_ip, thr_acc))
@@ -386,7 +389,7 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config):
 
     sol = QPSolution(
         x=x_fin, lams=torch.clamp(st.z, min=1e-8),
-        slacks=torch.clamp(h - _mv(G, x_fin), min=1e-8), nus=y_fin,
+        slacks=torch.clamp(h - ops.mv(G, x_fin), min=1e-8), nus=y_fin,
         iterations=it, primal_residual=st.primal, dual_residual=st.dual,
         converged=st.converged)
     return sol, f

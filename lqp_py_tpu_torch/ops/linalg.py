@@ -263,7 +263,11 @@ class KKTFactors:
 
 def _schur_pieces(A, W, s_reg):
     """``Sinv = (A W + s_reg I)^-1`` for W = H^-1 A^T."""
-    S = A @ W                                       # (B, m, m)
+    return schur_inverse(A @ W, s_reg)              # (B, m, m)
+
+
+def schur_inverse(S, s_reg: float = 0.0):
+    """``(S + s_reg I)^-1`` of the SPD Schur complement ``S = A W``."""
     if s_reg:
         S = S + s_reg * torch.eye(S.shape[-1], dtype=S.dtype,
                                   device=S.device)

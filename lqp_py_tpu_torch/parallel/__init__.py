@@ -1,12 +1,11 @@
 """Distribution layer over ``torch.distributed`` (counterpart of
 ``lqp_py_tpu.parallel``): process meshes and batch sharding ('dp'),
 lock-step batch-sharded solves for every solver family, and the
-column-sharded ('tp') box-QP solve.  Ranks are processes started by
+column-sharded ('tp') solves of every solver family, each also on the
+rank's blocks alone (``*_local``).  Ranks are processes started by
 ``parallel/launch.py`` (torchrun's variables, ``env://``).
 
-Not yet here: ``solve_qp_gen_tp``, ``solve_qp_optnet_tp`` and
-``solve_box_qp_ip_tp`` (tp for the other solver families), and tp with
-polish, Anderson, the early-exit step or the Cholesky mode, which raise.
+Not yet here: the box solve's Cholesky mode under tp, which raises.
 """
 
 from lqp_py_tpu_torch.parallel.mesh import (batch_sharding,
@@ -17,13 +16,24 @@ from lqp_py_tpu_torch.parallel.sharded import (batch_sharded, boxqp_sharded,
                                                solve_box_qp_shard_map,
                                                solve_box_qp_sharded)
 from lqp_py_tpu_torch.parallel.tp import (lowered_tp_memory,
-                                          shard_problem_tp, solve_box_qp_tp,
-                                          solve_box_qp_tp_local, tp_columns)
+                                          shard_problem_tp,
+                                          solve_box_qp_ip_tp,
+                                          solve_box_qp_ip_tp_local,
+                                          solve_box_qp_tp,
+                                          solve_box_qp_tp_local,
+                                          solve_qp_gen_tp,
+                                          solve_qp_gen_tp_local,
+                                          solve_qp_optnet_tp,
+                                          solve_qp_optnet_tp_local,
+                                          tp_columns)
 
 __all__ = [
     "batch_sharding", "initialize_distributed", "make_mesh", "mesh_group",
     "shard_batch",
     "batch_sharded", "boxqp_sharded", "solve_box_qp_sharded",
     "solve_box_qp_shard_map", "lowered_tp_memory", "shard_problem_tp",
-    "solve_box_qp_tp", "solve_box_qp_tp_local", "tp_columns",
+    "solve_box_qp_tp", "solve_box_qp_tp_local", "solve_qp_gen_tp",
+    "solve_qp_gen_tp_local", "solve_qp_optnet_tp",
+    "solve_qp_optnet_tp_local", "solve_box_qp_ip_tp",
+    "solve_box_qp_ip_tp_local", "tp_columns",
 ]

@@ -85,7 +85,8 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         msg))
     for name, value in (("N", 200), ("B", 8), ("N_PAD", 256), ("N_HARD", 2),
                         ("N_X2", 100), ("N_BATCH2", 16), ("MINI2", 4),
-                        ("N_INEQ", 100), ("N_CONIC", 40), ("DEVICE", "cpu")):
+                        ("N_INEQ", 100), ("N_CONIC", 40), ("N_COND", 64),
+                        ("DEVICE", "cpu")):
         monkeypatch.setattr(cs, name, value)
 
     cs.main()
@@ -134,8 +135,18 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
     assert leaf["launches_dp"] >= 2 * 2 and leaf["launches_dp"] % 2 == 0
     assert leaf["launches_tp"] >= 2
     assert leaf["launches_tp_per_rank"][0] == leaf["launches_tp_per_rank"][1]
+    # Phases 24-26: one 100-wide panel a rank per factorization at n=200
+    # (GenQP, the box IP), the early-exit step's rectangular GEMV once per
+    # iteration on each rank.
+    for key in ("genqp", "box_ip", "optnet_schur", "optnet_condensed"):
+        ranks = leaf[f"launches_tp_{key}_per_rank"]
+        assert ranks[0] == ranks[1] >= 1, key
+    gemv = kernels[1]
+    assert gemv["launches_tp"] == sum(gemv["launches_tp_per_rank"]) > 0
+    assert {"ms_rect", "plain_ms_rect", "library_ms_rect",
+            "bound_ms_rect"} <= set(gemv)
     phases = {line.split()[1] for line in lines if line.startswith("phase")}
-    assert phases == {str(i) for i in range(1, 24)}
+    assert phases == {str(i) for i in range(1, 27)}
 
 
 def test_chip_smoke_without_cuda_fails_before_any_result(tmp_path):

@@ -171,11 +171,28 @@ def test_gemv_kernel_keeps_no_local_memory(cuda):
     assert 0 < attrs["regs"] <= 255, attrs
 
 
+@pytest.mark.parametrize("m,k", [(1024, 512), (512, 1024), (1000, 500),
+                                 (256, 385), (33, 8)])
+def test_gemv_kernel_rectangular_matches_plain_version(cuda, m, k):
+    """P (B, m, k), the tp step's column block of P: k = 385 takes the
+    scalar path; m = 33 leaves a ragged last block of rows."""
+    B = 128
+    g = torch.Generator(device=cuda).manual_seed(2)
+    P = torch.randn((B, m, k), generator=g, device=cuda)
+    r = torch.randn((B, k), generator=g, device=cuda)
+    x_prev = torch.randn((B, m), generator=g, device=cuda)
+    for n_conv in (0, B // 2, B - 1, B):
+        conv = torch.zeros(B, dtype=torch.bool, device=cuda)
+        conv[:n_conv] = True
+        _check_gemv(P, r, x_prev, conv)
+
+
 @pytest.mark.parametrize("make", [
     lambda P, r, x: (P.double(), r.double(), x.double()),
     lambda P, r, x: (P.mT, r, x),
-    lambda P, r, x: (P[:, :, :-1], r[:, :-1], x[:, :-1]),
-], ids=["float64", "non-contiguous", "not-square"])
+    lambda P, r, x: (P, r[:, :-1], x),
+    lambda P, r, x: (P, r, x[:, :-1]),
+], ids=["float64", "non-contiguous", "r-not-P-columns", "x-not-P-rows"])
 def test_gemv_kernel_rejects_what_it_does_not_take(cuda, make):
     P, r, x_prev = make(*_gemv_inputs(2, 256, cuda))
     conv = torch.tensor([False, True], device=cuda)
@@ -471,6 +488,7 @@ from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
 from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
 from lqp_py_tpu_torch.parallel import initialize_distributed, make_mesh
 from lqp_py_tpu_torch.parallel import tp as tpm
+from lqp_py_tpu_torch.parallel import tp_ops
 initialize_distributed(backend="gloo")
 B, n = 8, 1024
 g = torch.Generator(device="cuda").manual_seed(5)
@@ -480,7 +498,7 @@ mesh = make_mesh((1, 2), ("dp", "tp"))
 tp = tpm._TP(mesh, "tp", n)
 with highest_matmul_precision():
     before = sk.LAUNCHES
-    got = tpm.column_spd_inverse(H.float()[:, :, tp.mine].contiguous(), tp)
+    got = tp_ops.column_spd_inverse(H.float()[:, :, tp.mine].contiguous(), tp)
     launches = sk.LAUNCHES - before
     ref = lin.spd_inverse_fast(H.float())[:, :, tp.mine]
 want = torch.linalg.inv(H)[:, :, tp.mine]

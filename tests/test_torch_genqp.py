@@ -27,7 +27,7 @@ import lqp_py_tpu as J
 from lqp_py_tpu.models import genqp as jgen
 from lqp_py_tpu.utils.generators import create_qp_data
 import lqp_py_tpu_torch as T
-from lqp_py_tpu_torch.ops import linalg as tlin
+from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.utils.convert import (gen_prepared_from_numpy,
                                             gen_problem_from_numpy,
                                             qp_solution_from_numpy)
@@ -155,19 +155,20 @@ def _assert_matches(t, j, residual_tol=1e-9):
 @pytest.mark.parametrize("case", list(CASES))
 def test_solve_qp_gen_matches_jax(jax_solves, case):
     d, j = jax_solves[case]
+    # The solver factors through its operator (``ops/operator.py``).
     calls = []
-    factorize = tlin.factorize_kkt
+    factorize = DENSE.factorize
 
     def counted(*args, **kw):
         calls.append(1)
         return factorize(*args, **kw)
 
-    tlin.factorize_kkt = counted
+    DENSE.factorize = counted
     try:
         t = T.solve_qp_gen(*gen_problem_from_numpy(*d, device="cpu"),
                            config=_cfg(T, **CASES[case][2]))
     finally:
-        tlin.factorize_kkt = factorize
+        del DENSE.factorize                     # the class's method again
     _assert_matches(t, j)
     if case == "infeasible":
         assert t.primal_infeasible.tolist() == [False, True]

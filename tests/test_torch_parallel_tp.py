@@ -1,6 +1,8 @@
 """The port's column-sharded ('tp') box-QP solve over ``torch.distributed``,
 held against the JAX package's ``solve_box_qp_tp`` (tests/test_parallel.py's
-tp cases), with the per-rank memory that proves the factorization is
+tp cases; with polish and with Anderson acceleration too), the tp
+early-exit step against the one-process early-exit solves of both
+packages, with the per-rank memory that proves the factorization is
 partitioned, the distributed float32 factorization (the SWEEP leaf's path)
 against ``spd_inverse_fast``, and the checkpoint restored onto a template
 whose ``W`` is sharded over 'tp'.  Four gloo ranks on the CPU, float64
@@ -31,20 +33,37 @@ LAYOUTS = {"2x2": (2, 2), "1x4": (1, 4)}
 CASES = {"n256": (256, 4, 0, 1e-7, (2, 4)),
          "column-layout": (32, 4, 11, 1e-8, (2, 2)),
          "nx1": (1, 4, 13, 1e-9, (4, 1))}
+# Options on the n256 case, against JAX's solve_box_qp_tp with the same;
+# Anderson at rho_scale 0.01, where ROADMAP Queue 3 holds its parity (far
+# from balance the Anderson least squares amplifies rounding differences
+# until the float64 iteration counts part).
+OPTIONS = {"polish": dict(polish=True),
+           "anderson": dict(acceleration=4, rho_scale=0.01)}
+# The early-exit step on the straggler batch (tests/test_torch_admm_step.py).
+EARLY = dict(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False,
+             max_iters=4000, use_pallas_step=True)
 
 
-def _cfg(pkg, eps):
-    return pkg.BoxQPConfig(eps_abs=eps, eps_rel=eps, max_iters=50000)
+def _cfg(pkg, eps, **over):
+    return pkg.BoxQPConfig(eps_abs=eps, eps_rel=eps, max_iters=50000,
+                           **over)
 
 
 def _inputs():
     import jax.numpy as jnp
-    from lqp_py_tpu.utils.generators import create_qp_data
+    from lqp_py_tpu.utils.generators import create_qp_data, generate_hard_qp
     out = {}
     for case, (n, B, seed, _, _) in CASES.items():
         d = create_qp_data(n, B, seed=seed, dtype=jnp.float64)
         out.update({f"{case}_{k}": np.asarray(v, np.float64)
                     for k, v in zip(BOX, d[:6])})
+    # experiments/experiment_straggler.py's batch: 8 hard problems, all but
+    # the last 2 ridged with mean(diag Q) I into easy ones.
+    d = [np.asarray(v, np.float64) for v in generate_hard_qp(64, 8)[:6]]
+    ridge = np.diagonal(d[0], axis1=-2, axis2=-1).mean(axis=-1)
+    d[0] = d[0] + np.where(np.arange(8) < 6, ridge, 0.0)[:, None,
+                                                         None] * np.eye(64)
+    out.update({f"strag_{k}": v for k, v in zip(BOX, d)})
     return out
 
 
@@ -72,6 +91,15 @@ def _jax_results(d):
         out[case] = solve_box_qp_tp(make_mesh(shape, ("dp", "tp")),
                                     *[jnp.asarray(v) for v in a],
                                     config=_cfg(J, eps))
+    n, _, _, eps, shape = CASES["n256"]
+    for name, over in OPTIONS.items():
+        out[name] = solve_box_qp_tp(
+            make_mesh(shape, ("dp", "tp")),
+            *[jnp.asarray(v) for v in _args(d, "n256")],
+            config=_cfg(J, eps, **over))
+    out["early"] = J.solve_box_qp(*[jnp.asarray(v)
+                                    for v in _args(d, "strag")],
+                                  config=J.BoxQPConfig(**EARLY))
     return out
 
 
@@ -190,21 +218,95 @@ def test_mesh_groups_take_the_world_timeout(results):
         assert list(per_rank[r]["group_timeouts_s"]) == [LAUNCH_TIMEOUT_S] * 2
 
 
-@pytest.mark.parametrize("option", [
-    dict(polish=True), dict(acceleration=4), dict(use_pallas_step=True),
-    dict(kkt_solver="cholesky"), "genqp"],
-    ids=["polish", "anderson", "early-exit", "cholesky", "solver-genqp"])
+@pytest.mark.parametrize("option", [dict(kkt_solver="cholesky")],
+                         ids=["cholesky"])
 def test_tp_unsupported_options_raise(option):
     """Options the tp slice does not take raise before any work; the
     operator is never replicated quietly."""
     import lqp_py_tpu_torch as T
-    from lqp_py_tpu_torch.parallel.tp import lowered_tp_memory, solve_box_qp_tp
+    from lqp_py_tpu_torch.parallel.tp import solve_box_qp_tp
 
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        if option == "genqp":
-            lowered_tp_memory(None, solver="genqp")
-        else:
-            solve_box_qp_tp(None, None, None, config=T.BoxQPConfig(**option))
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        solve_box_qp_tp(None, None, None, config=T.BoxQPConfig(**option))
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_tp_polish_matches_jax(results, layout):
+    """tp with polish: x to 1e-8 of JAX's ``solve_box_qp_tp(polish=True)``
+    with its iteration count, and the accepted mask the elements whose x
+    the polish moved there (JAX's solution carries no mask)."""
+    per_rank, j = results
+    shape = LAYOUTS[layout]
+    for r in range(WORLD):
+        assert int(per_rank[r][f"polish_{layout}_it"]) == int(
+            j["polish"].iterations)
+    np.testing.assert_allclose(_rows(per_rank, f"polish_{layout}_x", shape),
+                               np.asarray(j["polish"].x), rtol=1e-8,
+                               atol=1e-10)
+    moved = np.any(np.asarray(j["polish"].x) != np.asarray(j["n256"].x),
+                   axis=-1)
+    polished = _rows(per_rank, f"polish_{layout}_polished", shape)
+    np.testing.assert_array_equal(polished, moved)
+    assert polished.any()
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_tp_anderson_matches_jax(results, layout):
+    """tp with Anderson acceleration (on the replicated [z; u], no
+    collective of its own): JAX's iteration count and x to 1e-8."""
+    per_rank, j = results
+    shape = LAYOUTS[layout]
+    for r in range(WORLD):
+        assert int(per_rank[r][f"anderson_{layout}_it"]) == int(
+            j["anderson"].iterations)
+    assert _rows(per_rank, f"anderson_{layout}_converged", shape).all()
+    np.testing.assert_allclose(
+        _rows(per_rank, f"anderson_{layout}_x", shape),
+        np.asarray(j["anderson"].x), rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_tp_early_exit_matches_one_process(results, layout):
+    """tp with the early-exit step on the straggler batch: the iterations,
+    convergence and x (to 1e-8) of the port's one-process early-exit solve
+    and of JAX's ``solve_box_qp(use_pallas_step=True)``; every frozen
+    element's x came back from the step bitwise, on every rank."""
+    per_rank, j = results
+    shape = LAYOUTS[layout]
+    for r in range(WORLD):
+        assert int(per_rank[r][f"early_{layout}_it"]) == int(
+            per_rank[r]["early_one_it"]) == int(j["early"].iterations)
+        assert per_rank[r][f"early_{layout}_frozen_bitwise"]
+        assert per_rank[r][f"early_{layout}_frozen_rows"] > 0
+    conv = _rows(per_rank, f"early_{layout}_converged", shape)
+    np.testing.assert_array_equal(conv, np.asarray(j["early"].converged))
+    x = _rows(per_rank, f"early_{layout}_x", shape)
+    np.testing.assert_allclose(x, per_rank[0]["early_one_x"], rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(x, np.asarray(j["early"].x), rtol=0,
+                               atol=1e-8)
+
+
+@pytest.mark.parametrize("frozen", [0.0, 0.5, 1.0],
+                         ids=["0%", "50%", "100%"])
+def test_rect_gemv_early_exit_matches_matmul(frozen):
+    """The early-exit GEMV on a rectangular (B, m, k) P, the tp step's
+    block: ``P @ r`` where active, ``x_prev`` bitwise where frozen; on a
+    CPU tensor the wrapper takes this plain version."""
+    from lqp_py_tpu_torch.ops.kernels import admm_step as gk
+
+    rng = np.random.default_rng(4)
+    B, m, k = 8, 96, 40
+    P, r, x_prev = (torch.from_numpy(rng.standard_normal(s))
+                    for s in ((B, m, k), (B, k), (B, m)))
+    conv = torch.arange(B) < round(frozen * B)
+    for fn in (gk.gemv_early_exit_ref, gk.gemv_early_exit):
+        out = fn(P, r, x_prev, conv)
+        assert out.shape == (B, m)
+        assert torch.equal(out[conv], x_prev[conv])
+        want = torch.einsum("bmk,bk->bm", P, r)
+        torch.testing.assert_close(out[~conv], want[~conv], rtol=1e-12,
+                                   atol=1e-12)
 
 
 def _worker(inp, outdir):
@@ -222,6 +324,7 @@ def _worker(inp, outdir):
                                            solve_box_qp_tp_local,
                                            tp_columns)
     from lqp_py_tpu_torch.parallel import tp as tpm
+    from lqp_py_tpu_torch.parallel import tp_ops
     from lqp_py_tpu_torch.utils import checkpoint as ck
 
     initialize_distributed(backend="gloo", timeout_s=LAUNCH_TIMEOUT_S)
@@ -274,6 +377,36 @@ def _worker(inp, outdir):
             a = _column(a)
         record(case, solve_box_qp_tp(make_mesh(CASES[case][4], ("dp", "tp")),
                                      *a, config=_cfg(T, CASES[case][3])))
+    # Polish and Anderson, each layout.
+    for name, over in OPTIONS.items():
+        for layout, mesh in meshes.items():
+            sol = solve_box_qp_tp(mesh, *args("n256"),
+                                  config=_cfg(T, CASES["n256"][3], **over))
+            record(f"{name}_{layout}", sol)
+            if sol.polished is not None:
+                res[f"{name}_{layout}_polished"] = sol.polished
+    # The early-exit step: every frozen row of each step's result is the x
+    # it was given, bitwise.
+    gemv = tpm._ColumnKKT.gemv
+    for layout, mesh in meshes.items():
+        seen = {"rows": 0, "bitwise": True}
+
+        def spy(self, P, r, x, converged):
+            out = gemv(self, P, r, x, converged)
+            seen["rows"] += int(converged.sum())
+            seen["bitwise"] &= torch.equal(out[converged], x[converged])
+            return out
+
+        tpm._ColumnKKT.gemv = spy
+        try:
+            record(f"early_{layout}", solve_box_qp_tp(
+                mesh, *args("strag"), config=T.BoxQPConfig(**EARLY)))
+        finally:
+            tpm._ColumnKKT.gemv = gemv
+        res[f"early_{layout}_frozen_rows"] = seen["rows"]
+        res[f"early_{layout}_frozen_bitwise"] = seen["bitwise"]
+    record("early_one", T.solve_box_qp(*args("strag"),
+                                       config=T.BoxQPConfig(**EARLY)))
 
     res["mem_t4"] = np.array(lowered_tp_memory(meshes["1x4"], *args("n256"),
                                                config=cfg))
@@ -297,7 +430,7 @@ def _worker(inp, outdir):
     tp = tpm._TP(mesh, "tp", n)
     local = tpm.shard_problem_tp(mesh, *args("n256"))
     with collective.batch_group(mesh.get_group("dp")), Largest():
-        tpm._solve_local(tp, *local, config=cfg)
+        tpm._box_local(tp, *local, config=cfg)
     res["largest_numel_t4"] = Largest.numel
 
     # float32: the block sweep on pivot tiles of the SWEEP leaf.
@@ -309,7 +442,7 @@ def _worker(inp, outdir):
             res[f"f32_err_t{t}"] = 0.0
             continue
         tp = tpm._TP(m, "tp", n)
-        got = tpm.column_spd_inverse(H[:, :, tp.mine].contiguous(), tp)
+        got = tp_ops.column_spd_inverse(H[:, :, tp.mine].contiguous(), tp)
         ref = lin.spd_inverse_fast(H)[:, :, tp.mine]
         scale = want.abs().amax()
         res[f"f32_err_t{t}"] = max(
