@@ -72,7 +72,17 @@ memory against a tp=1 GenQP in the one-rank world), phase 25 the box IP on
 phase 16's requests, OptNet Schur on phase 18's data and OptNet condensed
 at n=256, phase 26 the box ADMM with polish (phase 13's requests), with
 Anderson and with the early-exit step (phase 8's straggler batch; the
-rectangular GEMV on the rank's block of P, counted per rank).  Phase 7 also
+rectangular GEMV on the rank's block of P, counted per rank); phase 27, in
+the same world, the box ADMM tp=2 in Cholesky mode on phase 13's requests
+(no leaf; the distributed blocked Cholesky and one iteration's two
+triangular sweeps timed; per-rank memory against a tp=1 Cholesky solve in
+the one-rank world) and OptNet tp=2 without G on phase 15's requests
+against its ``qp_eqcon``.  Phase 28 starts a world of four gloo ranks on
+the card, a (dp=2, tp=2) mesh: phase 11's ten Experiment-2 steps through
+the sharded trainer (``parallel/train.py``: W and bias over 'tp', the
+minibatch over 'dp') from phase 11's parameters and indices, against phase
+11's losses and weights, then the port's dry run
+(``parallel/dryrun.dryrun_multichip``).  Phase 7 also
 holds the GEMV's rectangular form, the tp step's (128, 1024, 512) block,
 against its plain version at 0/50/90% converged, timed beside ``P @ r``.
 A failed rank fails the phase.  Every phase raises on failure.  The line
@@ -124,7 +134,7 @@ N_X2, N_FEAT2, N_BATCH2, MINI2, LR2, STEPS2 = 500, 5, 128, 32, 5e-4, 10
 F32_FLOPS, TF32X3_FLOPS, HBM_BYTES_S = 67e12, 495e12 / 3, 3.35e12
 # The card the script drives; the CPU rehearsal test sets "cpu".
 DEVICE = "cuda"
-# Phases 22-26: the seed of boxqp_sharded's gradient weights, and each
+# Phases 22-28: the seed of boxqp_sharded's gradient weights, and each
 # world's time limit (start-up included).
 W_SEED, PAR_TIMEOUT_S = 7, 300
 # Phase 25's condensed OptNet tp=2 runs at n=256 (G = [-I; I]): at n=1000
@@ -945,6 +955,13 @@ def main():
           f"backward; max|dW| {moved:.3e}; loss per step "
           f"[{', '.join(f'{v:.5f}' for v in losses11)}]; ms per step "
           f"[{', '.join(f'{v:.2f}' for v in ms11)}]")
+    # Phase 28's yardstick: the sharded trainer starts where this one did.
+    ref["train11"] = {"feats": feats11.cpu(), "p_true": p_true11.cpu(),
+                      "sel": sel11, "W0": W0.cpu(),
+                      "W": params11.W.detach().cpu(),
+                      "bias": params11.bias.detach().cpu(),
+                      "losses": np.array(losses11),
+                      "q_sum": float(data11.Q.double().sum())}
 
     # 12. Experiment 1's ADMM_Unroll mode (experiments/experiment_1.py):
     # boxqp(unroll=True, unroll_iters=60, adaptive_rho=False) on phase 10's
@@ -1095,6 +1112,7 @@ def main():
           f"{plain13.iterations}); 0 leaf launches; max|x - x_f64| "
           f"{dxc13:.3e} (<= 1e-3); request {chol13_ms:.2f} ms (inverse "
           f"mode {plain13_ms:.2f})")
+    ref["it13_chol"] = chol13.iterations
     del pol13, plain13, chol13, direct0
 
     # 14. Anderson acceleration (window 10) on the straggler batch,
@@ -1170,6 +1188,8 @@ def main():
         (x32, gQ32, gp32, lv, ms), (x64, gQ64, gp64, _, ms64) = (
             outs[torch.float32], outs[torch.float64])
         _check(lv == 0, f"{name}: {lv} leaf launches")
+        if args:
+            ref["x15"] = x32        # phase 27's OptNet tp without G
         rel = {k: ((a.double() - b_).abs().max() / b_.abs().max()).item()
                for k, a, b_ in (("x", x32, x64), ("dQ", gQ32, gQ64),
                                 ("dp", gp32, gp64))}
@@ -1836,6 +1856,10 @@ def main():
         "launches_tp_optnet_schur_per_rank": par["launches_tp_optnet_schur"],
         "launches_tp_optnet_condensed_per_rank":
             par["launches_tp_optnet_condensed"],
+        "launches_tp_cholesky_per_rank": par["launches_tp_cholesky"],
+        "launches_tp_optnet_eq_per_rank": par["launches_tp_optnet_eq"],
+        "launches_train_sharded_per_rank": par["launches_train_sharded"],
+        "launches_dryrun_per_rank": par["launches_dryrun"],
         "err_ip_vs_f64": err16_k,
         "plain_err_ip_vs_f64": err16_p,
         "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
@@ -1899,8 +1923,11 @@ def _parallel_phases(dev, ref):
     (``_parallel_worker``), started by ``parallel/launch.py``; a failed
     rank fails the phase.  The gloo world also runs the tp=2 solves of
     phases 24-26 (GenQP, the box IP, OptNet in both modes, the box ADMM
-    with polish, Anderson and the early-exit step); the one-rank world the
-    tp=1 GenQP solve the memory gate of phase 24 compares with."""
+    with polish, Anderson and the early-exit step) and phase 27 (the box
+    ADMM in Cholesky mode, OptNet without G); the one-rank world the tp=1
+    GenQP and Cholesky solves the memory gates of phases 24 and 27 compare
+    with.  Phase 28 is a world of four gloo ranks, a (2, 2) mesh: the
+    sharded trainer and the dry run."""
     from lqp_py_tpu_torch import BoxQPConfig, boxqp
     from lqp_py_tpu_torch.parallel import tp as tpm
     from lqp_py_tpu_torch.parallel.launch import launch
@@ -1918,7 +1945,9 @@ def _parallel_phases(dev, ref):
             "q_sum": float(data.Q.double().sum()),
             "p_sum": float(data.p.double().sum()), "N_HARD": N_HARD,
             "N_INEQ": N_INEQ, "N_COND": N_COND, "AA_WINDOW": AA_WINDOW,
-            "q8_sum": ref["q8_sum"], "q18_sum": ref["q18_sum"]}
+            "q8_sum": ref["q8_sum"], "q18_sum": ref["q18_sum"],
+            "N_X2": N_X2, "N_BATCH2": N_BATCH2, "LR2": LR2,
+            "q11_sum": ref["train11"]["q_sum"]}
     del data, x1, p1
     # Phase 25's condensed OptNet at n=N_COND: its float64 answer (the box
     # ADMM at tol 1e-9, as phase 5's).
@@ -1929,12 +1958,16 @@ def _parallel_phases(dev, ref):
                                                       eps_rel=1e-9,
                                                       symmetrize=False)).x
     del dc
+    t11 = ref["train11"]
     with tempfile.TemporaryDirectory() as tmp:
         spec["out"] = tmp
         with open(f"{tmp}/spec.json", "w") as f:
             json.dump(spec, f)
+        np.savez(f"{tmp}/train11.npz", feats=t11["feats"].numpy(),
+                 p_true=t11["p_true"].numpy(), sel=t11["sel"],
+                 W0=t11["W0"].numpy())
         ranks = {}
-        for world, nproc in (("gloo", 2), ("nccl", 1)):
+        for world, nproc in (("gloo", 2), ("nccl", 1), ("train", 4)):
             t0 = time.perf_counter()
             launch([sys.executable, __file__, "--worker", f"{tmp}/spec.json",
                     world], nproc, timeout_s=PAR_TIMEOUT_S,
@@ -2044,7 +2077,125 @@ def _parallel_phases(dev, ref):
            "launches_tp": sum(i["tp_launches"] for i, _ in gloo),
            "launches_tp_per_rank": [i["tp_launches"] for i, _ in gloo]}
     out.update(_tp_solver_phases(dev, ref, gloo, nccl))
+    out.update(_phase_27(dev, ref, gloo, nccl))
+    out.update(_phase_28(ref, ranks["train"], ranks["train_s"]))
     return out
+
+
+def _phase_27(dev, ref, gloo, nccl):
+    """Phase 27 from the gloo ranks' records: the tp=2 box ADMM in Cholesky
+    mode on phase 13's requests, and OptNet without G on phase 15's."""
+    from lqp_py_tpu_torch.parallel.tp_ops import column_blocks
+
+    L, w_piv = column_blocks(N, 2)
+    info0, arr0 = gloo[0]
+    c = info0["chol"]
+    for info, arr in gloo:
+        for key in ("chol", "eq"):
+            _check(bool(arr[key + "_converged"].all()),
+                   f"{key}: {int(arr[key + '_converged'].sum())}/{B} "
+                   f"converged")
+            _check(np.array_equal(arr[key + "_x"], arr0[key + "_x"]),
+                   f"{key}: the ranks' replicated x differ")
+        _check(info["chol"]["it"] == c["it"], "tp Cholesky: the ranks' "
+               "iteration counts differ")
+        _check(info["chol"]["leaves"] == 0, f"tp Cholesky: "
+               f"{info['chol']['leaves']} leaf launches")
+        _check(info["eq"]["leaves"] == L // w_piv and info["eq"]["it"] == 0,
+               f"OptNet tp without G: {info['eq']['leaves']} leaf launches "
+               f"(one factorization of {L // w_piv} panels), "
+               f"{info['eq']['it']} iterations")
+    it13 = ref["it13_chol"]
+    _check(abs(c["it"] - it13) <= 0.1 * it13, f"tp Cholesky: {c['it']} "
+           f"iterations against phase 13's {it13} (beyond 10%)")
+    dx = (torch.from_numpy(arr0["chol_x"]).to(dev).double()
+          - ref["x64_5"]).abs().max().item()
+    _check(dx <= 1e-3, f"tp Cholesky: max|x - x_f64| = {dx:.3e}")
+    one = nccl[0][0]["chol1"]
+    mem = {k: max(i["chol_mem"][k] for i, _ in gloo) for k in one}
+    args_r, peak_r = mem["args"] / one["args"], mem["peak"] / one["peak"]
+    _check(args_r <= 0.55, f"tp Cholesky: blocks {args_r:.3f}x tp=1's")
+    _check(peak_r <= 0.7, f"tp Cholesky: peak {peak_r:.3f}x tp=1's")
+    x15 = ref["x15"].to(dev)
+    deq = ((torch.from_numpy(arr0["eq_x"]).to(dev) - x15).abs().max()
+           / x15.abs().max()).item()
+    _check(deq <= 1e-4, f"OptNet tp without G vs phase 15's qp_eqcon: "
+           f"relative max|dx| {deq:.3e}")
+    ms = [round(i["chol"]["ms"], 2) for i, _ in gloo]
+    print(f"phase 27 box ADMM tp=2, kkt_solver='cholesky' (phase 13's "
+          f"requests: B={B}, n={N}, f32, tol {TOL:g}), gloo on one card "
+          f"(staged through the host, not NVLink times), ranks' x bitwise "
+          f"equal: {B}/{B} converged in {c['it']} iterations (phase 13's "
+          f"Cholesky mode {it13}, within 10%), max|x - x_f64| {dx:.3e} (<= "
+          f"1e-3), leaf launches {[i['chol']['leaves'] for i, _ in gloo]}; "
+          f"request {max(ms):.2f} ms (ranks {ms}); one column_cholesky "
+          f"(first, warm) {[round(v, 2) for v in c['fact_ms']]} ms, one "
+          f"iteration's two sweeps ({B}, {2 * L}) {c['sweeps_ms']:.3f} ms; "
+          f"the whole problem on the host, per rank on the card "
+          f"{mem['args'] / 2**20:.1f} MiB of blocks ({args_r:.3f}x tp=1's "
+          f"{one['args'] / 2**20:.1f}, <= 0.55), peak of all the rank holds "
+          f"{mem['peak'] / 2**20:.1f} MiB ({peak_r:.3f}x tp=1's "
+          f"{one['peak'] / 2**20:.1f}, <= 0.7; {mem['resident'] / 2**20:.1f} "
+          f"and {one['resident'] / 2**20:.1f} MiB held before the blocks); "
+          f"OptNet tp without G on "
+          f"phase 15's requests: {B}/{B} converged, 0 iterations, leaf "
+          f"launches {[i['eq']['leaves'] for i, _ in gloo]}, relative "
+          f"max|x - x_qp_eqcon| {deq:.3e} (<= 1e-4), request "
+          f"{max(i['eq']['ms'] for i, _ in gloo):.2f} ms")
+    return {"launches_tp_cholesky": [i["chol"]["leaves"] for i, _ in gloo],
+            "launches_tp_optnet_eq": [i["eq"]["leaves"] for i, _ in gloo]}
+
+
+def _phase_28(ref, train, world_s):
+    """Phase 28 from the four ranks of the (2, 2) world: phase 11's ten
+    steps through the sharded trainer, and the dry run."""
+    t11 = ref["train11"]
+    leaves = -(-N_X2 // LEAF)
+    losses = [a["losses"] for _, a in train]
+    for info, arr in train:
+        _check(np.array_equal(arr["losses"], losses[0]),
+               "sharded trainer: the ranks' losses differ")
+        _check(info["bwd_leaves"] == [leaves] * STEPS2,
+               f"sharded trainer: leaf launches per backward "
+               f"{info['bwd_leaves']}, expected {leaves} each")
+        _check(info["dryrun"], "the dry run did not finish")
+    for d in range(2):                         # the tp ranks of a dp shard
+        (i0, a0), (i1, a1) = train[2 * d], train[2 * d + 1]
+        _check(np.array_equal(a0["x"], a1["x"]) and i0["launches"]
+               == i1["launches"], f"sharded trainer: dp shard {d}'s tp "
+               f"ranks differ")
+    W = torch.from_numpy(np.concatenate([train[0][1]["W"],
+                                         train[1][1]["W"]], axis=-1))
+    bias = torch.from_numpy(np.concatenate([train[0][1]["bias"],
+                                            train[1][1]["bias"]]))
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    gaps = {"loss": float(np.max(np.abs(losses[0] - t11["losses"])
+                                 / np.abs(t11["losses"]))),
+            "W": rel(W, t11["W"]), "bias": rel(bias, t11["bias"])}
+    _check(all(v <= 1e-4 for v in gaps.values()), f"sharded trainer vs "
+           f"phase 11: relative gaps {gaps}")
+    ms = [i["ms"] / STEPS2 for i, _ in train]
+    print(f"phase 28 sharded Experiment-2 trainer (phase 11's: n_x={N_X2}, "
+          f"{N_FEAT2} features, minibatch {MINI2} of {N_BATCH2}, lr "
+          f"{LR2:g}, tol {TOL:g}, the same initial params and indices), "
+          f"four gloo ranks on one card as a (dp=2, tp=2) mesh (staged "
+          f"through the host, not NVLink times): {STEPS2} steps through "
+          f"make_train_scan_sharded; relative gaps to phase 11's f32 run "
+          f"loss {gaps['loss']:.3e}, W {gaps['W']:.3e}, bias "
+          f"{gaps['bias']:.3e} (<= 1e-4); tp ranks' x bitwise equal in "
+          f"every step, losses bitwise equal on all ranks; leaf launches "
+          f"per rank {[i['launches'] for i, _ in train]} ({leaves} per "
+          f"backward); ms per step, slowest rank {max(ms):.2f} (ranks "
+          f"{[round(v, 2) for v in ms]}); dry run (dryrun_multichip) on the "
+          f"same mesh finished on every rank, "
+          f"{max(i['dryrun_ms'] for i, _ in train):.2f} ms, leaf launches "
+          f"per rank {[i['dryrun_launches'] for i, _ in train]}; world "
+          f"{world_s:.1f} s with start-up")
+    return {"launches_train_sharded": [i["launches"] for i, _ in train],
+            "launches_dryrun": [i["dryrun_launches"] for i, _ in train]}
 
 
 def _tp_solver_phases(dev, ref, gloo, nccl):
@@ -2259,10 +2410,13 @@ def _parallel_worker(spec_path, world):
                 else args + temp)
         return {"args": args, "temp": temp, "peak": peak, "resident": held}
 
-    initialize_distributed(backend="gloo" if world == "gloo" else None)
+    initialize_distributed(backend=None if world == "nccl" else "gloo")
+    if world == "train":
+        info, arrays = _train_worker(spec, dev, wall)
+        _write_rank(spec, world, info, arrays)
+        return
     mesh = make_mesh()                   # a world of one rank for "nccl"
     mesh_tp = make_mesh((1, dist.get_world_size()), ("dp", "tp"))
-    rank, nproc = dist.get_rank(), dist.get_world_size()
     n, b = spec["N"], spec["B"]
     data = create_qp_data(n, b, seed=0, dtype=torch.float32, device=dev)
     _check(float(data.Q.double().sum()) == spec["q_sum"]
@@ -2287,6 +2441,9 @@ def _parallel_worker(spec_path, world):
         host = tuple(None if x is None else x.cpu() for x in data)
         del data, sol, one
         info["tp1"] = footprint(mesh_tp, host)
+        # Phase 27's yardstick: the tp=1 solve in Cholesky mode.
+        info["chol1"] = footprint(mesh_tp, host, config=dataclasses.replace(
+            cfg, kkt_solver="cholesky"))
         # Phase 24's yardstick: tp=1 GenQP, the whole problem on the host.
         G, h = QPData(*host).with_G_h()
         info["gen1"] = footprint(mesh_tp, (*host[:4], G, h), "genqp",
@@ -2316,6 +2473,9 @@ def _parallel_worker(spec_path, world):
         host = tuple(None if v is None else v.cpu() for v in data)
         del data, sol, sm, x, p, w
         info["tp"] = footprint(mesh_tp, host)
+        # Phase 27's, while the rank holds as little as for phase 23's.
+        info["chol_mem"] = footprint(mesh_tp, host, config=dataclasses.replace(
+            cfg, kkt_solver="cholesky"))
         local = shard_problem_tp(mesh_tp, *host, device=dev)
         sol, info["tp_warm_ms"] = wall(
             lambda: solve_box_qp_tp_local(mesh_tp, *local, config=cfg))
@@ -2341,12 +2501,83 @@ def _parallel_worker(spec_path, world):
         del y, panel
         _tp_solver_worker(spec, dev, mesh_tp, host, local, info, arrays,
                           wall, footprint)
-    out = f"{spec['out']}/{world}{rank}"
+    _write_rank(spec, world, info, arrays)
+
+
+def _write_rank(spec, world, info, arrays):
+    """A rank's numbers to ``<world><rank>.json`` and its arrays to
+    ``.npz``; then it leaves the world."""
+    import torch.distributed as dist
+
+    out = f"{spec['out']}/{world}{dist.get_rank()}"
     Path(out + ".json").write_text(json.dumps(info))
     np.savez(out + ".npz", **{k: (v.detach().cpu() if torch.is_tensor(v)
                                   else torch.as_tensor(v)).numpy()
                               for k, v in arrays.items()})
     dist.destroy_process_group()
+
+
+def _train_worker(spec, dev, wall):
+    """One of phase 28's four ranks, a (dp=2, tp=2) mesh: phase 11's ten
+    steps through ``make_train_scan_sharded`` from phase 11's initial
+    parameters, indices and data, every backward's leaf launches and every
+    step's x recorded; then ``dryrun_multichip`` on the same mesh."""
+    from lqp_py_tpu_torch import BoxQPConfig
+    from lqp_py_tpu_torch.models import layers
+    from lqp_py_tpu_torch.models.train import LinearQP
+    from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+    from lqp_py_tpu_torch.parallel import dryrun, make_mesh
+    from lqp_py_tpu_torch.parallel import train as ptrain
+    from lqp_py_tpu_torch.utils.generators import create_qp_data
+
+    mesh = make_mesh((2, 2), ("dp", "tp"))
+    t11 = np.load(f"{spec['out']}/train11.npz")
+    n_x = spec["N_X2"]
+    data = create_qp_data(n_x, spec["N_BATCH2"], seed=0, dtype=torch.float32,
+                          device=dev)
+    _check(float(data.Q.double().sum()) == spec["q11_sum"],
+           "the worker's training set differs from phase 11's")
+
+    def on_dev(a):
+        return torch.as_tensor(a, device=dev)
+
+    W0 = on_dev(t11["W0"])
+    params = ptrain.shard_linear_qp(LinearQP(W0, torch.zeros_like(W0[0])),
+                                    mesh, device=dev)
+    run = ptrain.make_train_scan_sharded(
+        mesh, BoxQPConfig(eps_abs=spec["TOL"], eps_rel=spec["TOL"]),
+        lr=spec["LR2"])
+    bwd_leaves, xs = [], []
+    bwd_fn, boxqp = layers._boxqp_bwd, ptrain.boxqp
+
+    def counted_bwd(*args, **kw):
+        s0 = sk.LAUNCHES
+        out = bwd_fn(*args, **kw)
+        bwd_leaves.append(sk.LAUNCHES - s0)
+        return out
+
+    def spy(*args, **kw):
+        x = boxqp(*args, **kw)
+        xs.append(x.detach().cpu())
+        return x
+
+    layers._boxqp_bwd, ptrain.boxqp = counted_bwd, spy
+    try:
+        sk.LAUNCHES = 0
+        (params, losses), ms = wall(lambda: run(
+            params, on_dev(t11["sel"]), on_dev(t11["feats"]), data.Q,
+            on_dev(t11["p_true"]), data.A, data.b, data.lb, data.ub))
+        launches = sk.LAUNCHES
+    finally:
+        layers._boxqp_bwd, ptrain.boxqp = bwd_fn, boxqp
+    del data
+    sk.LAUNCHES = 0
+    _, dry_ms = wall(lambda: dryrun.dryrun_multichip(mesh, device=dev))
+    info = {"ms": ms, "launches": launches, "bwd_leaves": bwd_leaves,
+            "dryrun": True, "dryrun_ms": dry_ms,
+            "dryrun_launches": sk.LAUNCHES}
+    return info, {"losses": losses, "W": params.W, "bias": params.bias,
+                  "x": torch.stack(xs)}
 
 
 def _tp_solver_worker(spec, dev, mesh_tp, host, local, info, arrays, wall,
@@ -2364,7 +2595,8 @@ def _tp_solver_worker(spec, dev, mesh_tp, host, local, info, arrays, wall,
                                            solve_box_qp_tp,
                                            solve_box_qp_tp_local,
                                            solve_qp_gen_tp_local,
-                                           solve_qp_optnet_tp)
+                                           solve_qp_optnet_tp,
+                                           solve_qp_optnet_tp_local)
     from lqp_py_tpu_torch.parallel import tp as tpm
     from lqp_py_tpu_torch.parallel import tp_ops
     from lqp_py_tpu_torch.utils.generators import QPData, create_qp_data
@@ -2457,6 +2689,26 @@ def _tp_solver_worker(spec, dev, mesh_tp, host, local, info, arrays, wall,
     finally:
         tpm._ColumnKKT.gemv = gemv
     info["early8"]["frozen_bitwise"] = int(changed) == 0
+
+    # 27. The box ADMM in Cholesky mode on phase 13's requests (the rank's
+    # blocks; its memory was taken beside phase 23's), one factorization
+    # and one iteration's two sweeps timed; OptNet without G on phase 15's
+    # requests (the same blocks).
+    cfg_chol = dataclasses.replace(cfg, kkt_solver="cholesky")
+    run("chol", lambda: solve_box_qp_tp_local(mesh_tp, *local,
+                                              config=cfg_chol))
+    H = tpm._scaled_block(local[0], torch.ones((b, n), device=dev),
+                          torch.ones(b, device=dev), tp)
+    info["chol"]["fact_ms"] = [wall(lambda: tp_ops.column_cholesky(H, tp))[1]
+                               for _ in range(2)]
+    Lc = tp_ops.column_cholesky(H, tp)
+    del H
+    y = torch.ones((b, tp.N), device=dev)
+    info["chol"]["sweeps_ms"] = statistics.mean(
+        wall(lambda: tp_ops.column_chol_solve(Lc, y, tp))[1]
+        for _ in range(10))
+    del Lc, y
+    run("eq", lambda: solve_qp_optnet_tp_local(mesh_tp, *local[:4]))
 
 
 if __name__ == "__main__":

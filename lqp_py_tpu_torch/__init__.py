@@ -21,10 +21,9 @@ its checkpoints (``utils/checkpoint.py``, restored onto a template
 sharded over a mesh too) and the timing helpers of ``utils/profiling.py``;
 and the distribution layer ``lqp_py_tpu_torch.parallel`` over
 ``torch.distributed``: batch-sharded lock-step solves for every solver
-family ('dp') and the column-sharded box-QP solve ('tp', default inverse
-mode).  Not yet: the tp solves of the other solver families
-(``solve_qp_gen_tp``, ``solve_qp_optnet_tp``, ``solve_box_qp_ip_tp``) and
-tp with polish, Anderson, the early-exit step or the Cholesky mode.  Its
+family ('dp'), the column-sharded solves of every solver family ('tp'; the
+box ADMM in both KKT modes, with polish, Anderson and the early-exit
+step), the dp x tp Experiment-2 trainer and its dry run.  Its
 three kernels, the 128x128 SWEEP leaf of the
 SPD inverse, the early-exit GEMV and the whole-matrix block-sweep inverse
 (``ops/kernels/block_inverse.py``, an entry point of its own that no

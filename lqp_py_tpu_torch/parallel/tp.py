@@ -24,13 +24,20 @@ partitioned solves from GSPMD; here every collective is placed by hand
   columns (frozen elements write zeros), all-reduces, and keeps a frozen
   element's x bitwise.  Anderson acceleration acts on the replicated
   ``[z; u]`` and needs no collective; its Gram inverse is the same on
-  every rank.  The polish goes through ``Columns``.
+  every rank.  The polish goes through ``Columns``.  In Cholesky mode
+  (``kkt_solver="cholesky"``) the rank keeps its columns of ``L =
+  chol(H)`` (``column_cholesky``) and applies ``H^-1`` by the two
+  distributed triangular sweeps, 2t - 1 broadcasts of (B, N) per
+  iteration; ``W = H^-1 A^T`` comes from the same sweeps, and the
+  early-exit step is off, as in one process.
 - **GenQP, OptNet and the box IP** run their own loops
   (``models/genqp.py``, ``models/optnet.py``, ``models/box_ip.py``) with
   ``Columns`` as their operator: G's products are partial sums, the Gram
   ``G^T diag(w) G`` is a block exchange, and every factorization is
   ``column_spd_inverse``.  OptNet's Schur mode keeps ``Qinv``
   column-sharded; ``Qinv G^T``, R and the ni x ni pieces are whole.
+  Without G, OptNet is the equality-constrained solve on the rank's
+  columns (``Columns.factorize`` and ``kkt_apply``), as in one process.
 
 Each check's flags are all-reduced over every rank of the mesh (dp x tp,
 ``mesh_group``), so the tp ranks leave a loop together even if their
@@ -42,7 +49,7 @@ A rank needs only its own blocks: each ``*_local`` entry takes them
 (``shard_problem_tp`` cuts them from a whole problem, which may stay on the
 host, or a caller builds them from ``tp_columns``), so no operator lies
 whole on any card.  The other entries take the whole problem, as the JAX
-functions do.  ``kkt_solver="cholesky"`` raises.
+functions do.
 """
 
 from __future__ import annotations
@@ -62,8 +69,10 @@ from lqp_py_tpu_torch.ops import scaling as sca
 from lqp_py_tpu_torch.ops.kernels import admm_step
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.parallel.mesh import mesh_group, shard_batch
-from lqp_py_tpu_torch.parallel.tp_ops import _TP, Columns, column_blocks
-from lqp_py_tpu_torch.types import as_vector
+from lqp_py_tpu_torch.parallel.tp_ops import (_TP, Columns, column_blocks,
+                                              column_chol_solve,
+                                              column_cholesky)
+from lqp_py_tpu_torch.types import QPSolution, as_vector
 
 _BOX = ("Q", "p", "A", "b", "lb", "ub")
 _GEN = ("Q", "p", "A", "b", "G", "h")
@@ -73,14 +82,6 @@ class TPMemory(NamedTuple):
     """Per-rank bytes of one tp solve (``lowered_tp_memory``)."""
     argument_size_in_bytes: int
     temp_size_in_bytes: int
-
-
-def _check(solver: str, config):
-    if solver == "box" and config.kkt_solver != "inverse":
-        raise NotImplementedError(
-            f"the column-sharded (tp) box solve takes the default inverse "
-            f"mode; kkt_solver={config.kkt_solver!r} on the sharded "
-            f"operator is queued (ROADMAP Queue 1, item 11c)")
 
 
 def tp_columns(mesh: DeviceMesh, n: int, model_axis: str = "tp") -> slice:
@@ -123,14 +124,12 @@ def shard_problem_tp(mesh: DeviceMesh, *operands, solver: str = "box",
 
 
 def _solve(solver, mesh, operands, config, batch_axis, model_axis):
-    _check(solver, config)
     return _solve_local(solver, mesh, shard_problem_tp(
         mesh, *operands, solver=solver, batch_axis=batch_axis,
         model_axis=model_axis), config, model_axis)
 
 
 def _solve_local(solver, mesh, local, config, model_axis):
-    _check(solver, config)
     tp = _TP(mesh, model_axis, as_vector(local[1], "p").shape[-1])
     with collective.batch_group(mesh_group(mesh)):
         return _TP_SOLVERS[solver][0](tp, *local, config=config)
@@ -141,7 +140,7 @@ def solve_box_qp_tp(mesh: DeviceMesh, Q, p, A=None, b=None, lb=None,
                     batch_axis: str = "dp", model_axis: str = "tp"):
     """Forward box-QP solve with the KKT operator column-sharded over
     ``model_axis`` and the batch over ``batch_axis``: the algorithm of
-    ``solve_box_qp`` (inverse mode, with polish, Anderson and the
+    ``solve_box_qp`` (either KKT mode, with polish, Anderson and the
     early-exit step), the layout of ``shard_problem_tp``.  Takes the whole
     problem on every rank (where a whole Q does not fit,
     ``solve_box_qp_tp_local`` takes the rank's blocks); returns the rank's
@@ -185,7 +184,8 @@ def solve_qp_optnet_tp(mesh: DeviceMesh, Q, p, A=None, b=None, G=None,
                        h=None, config: OptNetConfig = OptNetConfig(),
                        batch_axis: str = "dp", model_axis: str = "tp"):
     """Interior-point solve (``solve_qp_optnet``, Schur or condensed) with
-    Q, A and G column-sharded over ``model_axis``.  G is required."""
+    Q, A and G column-sharded over ``model_axis``; without G the
+    equality-constrained (or, without A too, unconstrained) solve."""
     return _solve("optnet", mesh, (Q, p, A, b, G, h), config, batch_axis,
                   model_axis)
 
@@ -263,8 +263,10 @@ def _box_local(tp: _TP, Q, p, A, b, lb, ub, config):
             E = torch.ones_like(b)
         As = F.pad(E[..., None] * AD, (0, tp.L - AD.shape[-1]))
         bs = E * b
-    kkt = _ColumnKKT(H, As, bs, rho0, tp, equilibrate=not config.scale,
-                     use_pallas=bool(config.use_pallas_step))
+    mode = box_qp._mode(config)
+    kkt = _ColumnKKT(H, As, bs, rho0, tp, mode, equilibrate=not config.scale,
+                     use_pallas=(bool(config.use_pallas_step)
+                                 and mode == "inverse"))
     return box_qp._solve_scaled(config, D * p, As, bs, lb / D, ub / D, D, E,
                                 p_norm, rho0, None, None, H0=H, kkt=kkt)
 
@@ -285,13 +287,15 @@ def _scaled_block(Q, D, rho, tp: _TP):
 class _ColumnKKT:
     """``models/box_qp._KKTOperator`` on the rank's column block ``H0``
     (B, N, L) and ``As`` (B, m, L) of the padded operator, through the
-    padded ``Columns``: ``W = Hinv A^T`` and ``S = A W`` are its partial
-    products, the rank's block of ``P = Hinv - WS W^T`` is local."""
+    padded ``Columns``.  Inverse mode: ``W = Hinv A^T`` and ``S = A W``
+    are its partial products, the rank's block of ``P = Hinv - WS W^T`` is
+    local.  Cholesky mode: the rank's block of ``L = chol(H)``, and ``W``
+    (whole) by the triangular sweeps on the gathered ``A^T``."""
 
-    def __init__(self, H0, As, bs, rho0, tp: _TP, equilibrate: bool,
-                 use_pallas: bool):
+    def __init__(self, H0, As, bs, rho0, tp: _TP, mode: str,
+                 equilibrate: bool, use_pallas: bool):
         self.H0, self.As, self.bs, self.rho0 = H0, As, bs, rho0
-        self.tp = tp
+        self.tp, self.mode = tp, mode
         self.ops = Columns(tp, padded=True, equilibrate=equilibrate)
         self.n, self.n_pad = tp.n, tp.N
         self.use_pallas = use_pallas
@@ -303,14 +307,30 @@ class _ColumnKKT:
             shift = F.pad((rho - self.rho0)[:, None].expand(-1, self.n),
                           (0, self.n_pad - self.n))
             H = self.ops.add_diag(H.clone(), shift)
-        return self.ops.factorize(H, self.As, materialize_p=self.use_pallas)
+        if self.mode == "inverse":
+            return self.ops.factorize(H, self.As,
+                                      materialize_p=self.use_pallas)
+        Lc = column_cholesky(H, self.tp)
+        if self.As is None:
+            return lin.KKTFactors(L=Lc)
+        W = column_chol_solve(Lc, self.tp.gather(self.As.mT), self.tp)
+        return lin.KKTFactors(L=Lc, W=W, Sinv=lin.schur_inverse(
+            self.ops.mm(self.As, W)))
 
     def step_constant(self, f: lin.KKTFactors):
-        if f.W is None:
+        """``q`` of the x-update; 0 in Cholesky mode, whose x-update takes
+        the whole KKT solve, as in one process."""
+        if f.W is None or f.L is not None:
             return self.rho0.new_zeros((self.rho0.shape[0], self.n_pad))
         return lin._mv(f.W, lin._mv(f.Sinv, self.bs))
 
     def x_update(self, f: lin.KKTFactors, q, r):
+        if f.L is not None:
+            y = column_chol_solve(f.L, r, self.tp)
+            if f.W is None:
+                return y
+            return y - lin._mv(f.W, lin._mv(f.Sinv,
+                                            lin._mv(f.W.mT, r) - self.bs))
         y = self.ops.mv(f.Hinv, r)
         if f.W is not None:
             y = y - lin._mv(f.WS, lin._mv(f.W.mT, r))
@@ -349,10 +369,34 @@ def _gen_local(tp: _TP, Q, p, A, b, G, h, config):
 
 
 def _optnet_local(tp: _TP, Q, p, A, b, G, h, config):
+    ops = Columns(tp)
     if G is None:
-        raise ValueError("solve_qp_optnet_tp requires G/h")
-    return optnet._solve_qp_optnet_full(Q, p, A, b, G, h, config,
-                                        Columns(tp))[0]
+        return _eq_local(ops, Q, p, A, b)
+    return optnet._solve_qp_optnet_full(Q, p, A, b, G, h, config, ops)[0]
+
+
+@solver_precision
+def _eq_local(ops: Columns, Q, p, A, b):
+    """OptNet without G on the rank's columns, as ``_solve_qp_optnet_full``
+    reduces it: the equality-constrained solve (``Columns.factorize`` and
+    ``kkt_apply``), or without A ``Q^-1 (-p)``; no inequality, no
+    iteration, every element converged."""
+    Q = ops.symmetrize(Q)
+    kw = dict(dtype=Q.dtype, device=Q.device)
+    p = as_vector(p, "p").to(**kw)
+    B = p.shape[0]
+    if A is None:
+        x, nus = ops.mv(ops.inverse(Q), -p), None
+    else:
+        x, nus = ops.kkt_apply(ops.factorize(Q, A.to(**kw)), -p,
+                               as_vector(b, "b").to(**kw))
+    zeros = torch.zeros((B,), **kw)
+    return QPSolution(x=x, lams=torch.zeros((B, 0), **kw),
+                      slacks=torch.zeros((B, 0), **kw), nus=nus,
+                      iterations=0, primal_residual=zeros,
+                      dual_residual=zeros,
+                      converged=torch.ones((B,), dtype=torch.bool,
+                                           device=Q.device))
 
 
 @solver_precision
@@ -402,7 +446,6 @@ def lowered_tp_memory(mesh: DeviceMesh, *operands, config=None,
     _, default, _, names = _spec(solver, operands)
     operands = operands + (None,) * (len(names) - len(operands))
     cfg = default() if config is None else config
-    _check(solver, cfg)
     local = shard_problem_tp(mesh, *operands, solver=solver,
                              batch_axis=batch_axis, model_axis=model_axis,
                              device=device)

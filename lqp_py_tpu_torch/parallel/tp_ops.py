@@ -26,7 +26,13 @@ For a (B, k, L) block ``Gc`` of a (B, k, n) matrix G and whole vectors:
   ``column_spd_inverse``, a block Gauss-Jordan sweep over column panels
   (the algorithm of ``ops/kernels/block_inverse.py``, distributed; the JAX
   package's GSPMD partitions a Cholesky recursion instead), each pivot tile
-  inverted by the SWEEP leaf in float32.
+  inverted by the SWEEP leaf in float32;
+- the lower Cholesky factor of such a matrix: ``column_cholesky``, a
+  right-looking blocked Cholesky over the same panels (one broadcast per
+  panel), and the triangular sweeps ``L y = r`` and ``L^T x = y`` on its
+  column blocks, one rank after another (``forward_sweep``,
+  ``backward_sweep``, ``column_chol_solve``): about t broadcasts of the
+  right-hand side per sweep.
 
 Columns are cut into blocks of ``L`` per rank, where ``L`` is n/t rounded
 up to the pivot width ``w = min(128, ceil(n/t))``: rank c holds columns
@@ -170,6 +176,98 @@ def column_spd_inverse(H, tp: _TP, equilibrate: bool = True):
     if d is not None:
         M *= d[:, :, None] * d[:, None, mine]
     return M
+
+
+def column_cholesky(H, tp: _TP):
+    """The rank's (B, N, L) columns of the lower Cholesky factor of the
+    padded SPD ``H`` from its columns of H, by a right-looking blocked
+    Cholesky over the pivot panels of width ``tp.w``:
+
+        L_KK = chol(M[K, K]);  L[K+, K] = M[K+, K] L_KK^-T;
+        M[K+, J] -= L[K+, K] L[J, K]^T   for the columns J after K
+
+    The panel's owner factors its tile (``ops/linalg.cholesky``: a tile
+    that is not SPD turns NaN, nothing raises), solves the rows below it
+    and broadcasts the panel's rows from K on; every rank updates only its
+    own later columns.  An element whose tile failed on any panel comes
+    back NaN in every rank's block, as ``ops/linalg.cholesky`` returns it.  One (B, N - k, w) broadcast per panel, as
+    ``column_spd_inverse``; no leaf and no equilibration, as the
+    one-process Cholesky mode.  The identity pad stays identity."""
+    global FACTORIZATIONS
+    B, N, L = H.shape
+    w, c = tp.w, tp.c
+    M = H.clone()
+    failed = torch.zeros((B,), dtype=torch.bool, device=H.device)
+    for k0 in range(0, N, w):
+        owner, k1 = k0 // L, k0 + w
+        if owner == c:
+            kl = slice(k0 - c * L, k1 - c * L)
+            Lkk = lin.cholesky(M[:, k0:k1, kl])
+            below = torch.linalg.solve_triangular(Lkk.mT, M[:, k1:, kl],
+                                                  upper=True, left=False)
+            V = torch.cat([Lkk, below], dim=1)
+        else:
+            V = M.new_empty((B, N - k0, w))
+        tp.bcast(V, owner)
+        tp.note(H, M, V)
+        failed |= torch.isnan(V[:, 0, 0])
+        j0 = max(k1 - c * L, 0)          # the rank's first column after K
+        if j0 < L:
+            M[:, k1:, j0:].baddbmm_(
+                V[:, w:], V[:, c * L + j0 - k0:(c + 1) * L - k0].mT,
+                alpha=-1.0)
+        if owner == c:
+            M[:, :k0, kl] = 0.0
+            M[:, k0:, kl] = V
+    FACTORIZATIONS += 1
+    return M.masked_fill_(failed[:, None, None], torch.nan)
+
+
+def forward_sweep(Lc, r, tp: _TP, replicate: bool = True):
+    """``L^-1 r`` for the factor held as the ranks' (B, N, L) column blocks
+    ``Lc`` and a whole r, (B, N) or (B, N, m).  Column by column: rank 0
+    solves its diagonal block, takes its columns' share out of the rows
+    below, and broadcasts the vector to rank 1, and so on; t broadcasts,
+    the result whole on every rank.  Without ``replicate`` the last
+    broadcast is left out: the result is whole on rank t-1 alone, which is
+    what ``backward_sweep`` starts from."""
+    vec = r.ndim == 2
+    y = (r[..., None] if vec else r).clone(
+        memory_format=torch.contiguous_format)
+    mine = tp.mine
+    for s in range(tp.t):
+        if s == tp.c:
+            ys = torch.linalg.solve_triangular(Lc[:, mine, :], y[:, mine],
+                                               upper=False)
+            y[:, mine] = ys
+            y[:, mine.stop:].baddbmm_(Lc[:, mine.stop:, :], ys, alpha=-1.0)
+        if replicate or s < tp.t - 1:
+            tp.bcast(y, s)
+    return y[..., 0] if vec else y
+
+
+def backward_sweep(Lc, y, tp: _TP):
+    """``L^-T y`` for ``Lc`` as in ``forward_sweep``, from the last rank to
+    the first: row block K of ``L^T`` is column block K of L, so each rank
+    needs its own columns and the x its successors found.  t broadcasts,
+    the result whole on every rank."""
+    vec = y.ndim == 2
+    x = (y[..., None] if vec else y).clone(
+        memory_format=torch.contiguous_format)
+    mine = tp.mine
+    for s in reversed(range(tp.t)):
+        if s == tp.c:
+            rhs = x[:, mine] - Lc[:, mine.stop:, :].mT @ x[:, mine.stop:]
+            x[:, mine] = torch.linalg.solve_triangular(
+                Lc[:, mine, :].mT, rhs, upper=True)
+        tp.bcast(x, s)
+    return x[..., 0] if vec else x
+
+
+def column_chol_solve(Lc, r, tp: _TP):
+    """``(L L^T)^-1 r``, whole on every rank: the two sweeps, 2t - 1
+    broadcasts."""
+    return backward_sweep(Lc, forward_sweep(Lc, r, tp, replicate=False), tp)
 
 
 def _symmetrize(Q, tp: _TP):

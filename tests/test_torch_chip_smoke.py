@@ -145,8 +145,18 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
     assert gemv["launches_tp"] == sum(gemv["launches_tp_per_rank"]) > 0
     assert {"ms_rect", "plain_ms_rect", "library_ms_rect",
             "bound_ms_rect"} <= set(gemv)
+    # Phase 27: no leaf in the tp Cholesky mode; one factorization (a
+    # 100-wide panel a rank) for OptNet without G.  Phase 28: four ranks,
+    # one leaf per n_x=100 backward and the forward's factorizations, alike
+    # within each dp shard; the dry run's factorizations too.
+    assert leaf["launches_tp_cholesky_per_rank"] == [0, 0]
+    assert leaf["launches_tp_optnet_eq_per_rank"] == [1, 1]
+    train = leaf["launches_train_sharded_per_rank"]
+    assert len(train) == 4 and min(train) >= 2 * 10
+    assert train[0] == train[1] and train[2] == train[3]
+    assert len(leaf["launches_dryrun_per_rank"]) == 4
     phases = {line.split()[1] for line in lines if line.startswith("phase")}
-    assert phases == {str(i) for i in range(1, 27)}
+    assert phases == {str(i) for i in range(1, 29)}
 
 
 def test_chip_smoke_without_cuda_fails_before_any_result(tmp_path):

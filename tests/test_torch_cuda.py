@@ -512,13 +512,55 @@ dist.destroy_process_group()
 """
 
 
-@pytest.mark.parametrize("code", [_GLOO_COLLECTIVES, _TP_FACTORIZATION],
-                         ids=["gloo-collectives", "tp-factorization"])
+_TP_CHOLESKY = """
+import torch, torch.distributed as dist
+from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
+from lqp_py_tpu_torch.parallel import initialize_distributed, make_mesh
+from lqp_py_tpu_torch.parallel import tp as tpm
+from lqp_py_tpu_torch.parallel import tp_ops
+initialize_distributed(backend="gloo")
+B, n = 8, 1024
+g = torch.Generator(device="cuda").manual_seed(6)
+a = torch.randn((B, 2 * n, n), generator=g, device="cuda", dtype=torch.float64)
+H = ((a.mT @ a) / (2 * n) + torch.eye(n, device="cuda", dtype=torch.float64))
+r = torch.randn((B, n), generator=g, device="cuda", dtype=torch.float64)
+mesh = make_mesh((1, 2), ("dp", "tp"))
+tp = tpm._TP(mesh, "tp", n)
+with highest_matmul_precision():
+    before = sk.LAUNCHES
+    Lc = tp_ops.column_cholesky(H.float()[:, :, tp.mine].contiguous(), tp)
+    x = tp_ops.column_chol_solve(Lc, r.float(), tp)
+    launches = sk.LAUNCHES - before
+    L32 = torch.linalg.cholesky(H.float())
+    x32 = torch.cholesky_solve(r.float()[..., None], L32)[..., 0]
+L = torch.linalg.cholesky(H)
+want = torch.cholesky_solve(r[..., None], L)[..., 0]
+torch.cuda.synchronize()
+def rel(a, b):
+    return ((a.double() - b).abs().max() / b.abs().max()).item()
+err_l, err_l32 = rel(Lc, L[:, :, tp.mine]), rel(L32[:, :, tp.mine], L[:, :, tp.mine])
+err_x, err_x32 = rel(x, want), rel(x32, want)
+assert launches == 0, launches
+assert err_l <= max(4 * err_l32, 1e-6), (err_l, err_l32)
+assert err_x <= max(4 * err_x32, 1e-6), (err_x, err_x32)
+print("ok", dist.get_rank(), err_l, err_l32, err_x, err_x32)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("code", [_GLOO_COLLECTIVES, _TP_FACTORIZATION,
+                                  _TP_CHOLESKY],
+                         ids=["gloo-collectives", "tp-factorization",
+                              "tp-cholesky"])
 def test_two_gloo_ranks_on_one_card(cuda, code):
     """The launcher's two gloo ranks on one card: broadcast and all-reduce
-    (sum and max) of CUDA tensors; and the tp factorization's local block
-    at (8, 1024, 1024) f32, tp=2 (four leaves per rank), against a float64
-    inverse, within 4x the error of ``spd_inverse_fast``."""
+    (sum and max) of CUDA tensors; the tp factorization's local block at
+    (8, 1024, 1024) f32, tp=2 (four leaves per rank), against a float64
+    inverse, within 4x the error of ``spd_inverse_fast``; and the tp
+    Cholesky mode's ``column_cholesky`` and two triangular sweeps at the
+    same shape (no leaf), each within 4x the error of
+    ``torch.linalg.cholesky`` / ``cholesky_solve`` in f32 against f64."""
     import sys
     from pathlib import Path
 

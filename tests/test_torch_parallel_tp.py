@@ -218,18 +218,6 @@ def test_mesh_groups_take_the_world_timeout(results):
         assert list(per_rank[r]["group_timeouts_s"]) == [LAUNCH_TIMEOUT_S] * 2
 
 
-@pytest.mark.parametrize("option", [dict(kkt_solver="cholesky")],
-                         ids=["cholesky"])
-def test_tp_unsupported_options_raise(option):
-    """Options the tp slice does not take raise before any work; the
-    operator is never replicated quietly."""
-    import lqp_py_tpu_torch as T
-    from lqp_py_tpu_torch.parallel.tp import solve_box_qp_tp
-
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        solve_box_qp_tp(None, None, None, config=T.BoxQPConfig(**option))
-
-
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_tp_polish_matches_jax(results, layout):
     """tp with polish: x to 1e-8 of JAX's ``solve_box_qp_tp(polish=True)``

@@ -1,6 +1,7 @@
 """The port's column-sharded ('tp') GenQP, OptNet (Schur and condensed) and
-box-IP solves over ``torch.distributed``, held against the JAX package's
-functions of the same names (tests/test_parallel.py's data and configs),
+box-IP solves over ``torch.distributed``, and OptNet without G (the
+equality-constrained and unconstrained solves), held against the JAX
+package's functions of the same names (tests/test_parallel.py's data and configs),
 with each ``*_local`` form on the rank's own blocks and the per-rank memory
 that proves the factorizations are partitioned.  Four gloo ranks on the
 CPU, float64.
@@ -46,6 +47,9 @@ SOLVERS = {
                ("OptNetConfig", dict(tol=1e-10, max_iters=60))),
 }
 MEMORY = {"genqp": GEN, "optnet": GEN, "box_ip": BOX}
+# OptNet without G: the equality-constrained solve, and without A too the
+# unconstrained one (the operands given).
+NO_G = {"eq": ("Q", "p", "A", "b"), "uncon": ("Q", "p")}
 
 
 def _cfg(pkg, solver, **over):
@@ -84,6 +88,9 @@ def _jax_results(d):
         out[solver] = fn(mesh, *a, config=_cfg(J, solver))
         out[solver + "_nopolish"] = fn(mesh, *a,
                                        config=_cfg(J, solver, polish=False))
+    for case, names in NO_G.items():
+        out[case] = jtp.solve_qp_optnet_tp(
+            mesh, *[jnp.asarray(v) for v in _args(d, names)])
     return out
 
 
@@ -127,6 +134,33 @@ def test_tp_solver_matches_jax(results, solver, layout):
     np.testing.assert_allclose(_rows(per_rank, f"{solver}_{layout}_x", shape),
                                np.asarray(j[solver].x), rtol=1e-8,
                                atol=1e-10)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("case", list(NO_G))
+def test_tp_optnet_without_g_matches_jax(results, case, layout):
+    """``solve_qp_optnet_tp`` without G: x (and with A the equality duals)
+    to 1e-8 of JAX's, no iteration, every element converged."""
+    per_rank, j = results
+    shape = LAYOUTS[layout]
+    for r in range(WORLD):
+        assert int(per_rank[r][f"{case}_{layout}_it"]) == 0
+    assert _rows(per_rank, f"{case}_{layout}_converged", shape).all()
+    np.testing.assert_allclose(_rows(per_rank, f"{case}_{layout}_x", shape),
+                               np.asarray(j[case].x), rtol=1e-8, atol=1e-10)
+    if case == "eq":
+        np.testing.assert_allclose(
+            _rows(per_rank, f"{case}_{layout}_nus", shape),
+            np.asarray(j[case].nus), rtol=1e-8, atol=1e-10)
+
+
+def test_lowered_tp_memory_optnet_without_g(results):
+    """``lowered_tp_memory(solver="optnet")`` without G returns the rank's
+    operands and a factorization's working set."""
+    per_rank, _ = results
+    for r in range(WORLD):
+        args, temp = per_rank[r]["mem_optnet_no_g"]
+        assert args > 0 and temp > 0, (r, args, temp)
 
 
 @pytest.mark.parametrize("solver", list(SOLVERS))
@@ -216,6 +250,19 @@ def _worker(inp, outdir):
             mesh, *local, config=_cfg(T, solver))
         res.update({f"{solver}_local_x": sol.x,
                     f"{solver}_local_it": sol.iterations})
+
+    for case, names in NO_G.items():
+        args = [torch.tensor(v) for v in _args(d, names)]
+        for layout, mesh in meshes.items():
+            sol = T.parallel.solve_qp_optnet_tp(mesh, *args)
+            res.update({f"{case}_{layout}_x": sol.x,
+                        f"{case}_{layout}_it": sol.iterations,
+                        f"{case}_{layout}_converged": sol.converged})
+            if sol.nus is not None:
+                res[f"{case}_{layout}_nus"] = sol.nus
+    res["mem_optnet_no_g"] = np.array(lowered_tp_memory(
+        meshes["1x4"], *[torch.tensor(v) for v in _args(d, NO_G["eq"])],
+        solver="optnet"))
 
     # Memory at n=256, B=2: t=4 on every rank, t=1 on rank 0 alone.
     mesh1 = make_mesh((1, 1), ("dp", "tp"))
