@@ -82,7 +82,17 @@ the card, a (dp=2, tp=2) mesh: phase 11's ten Experiment-2 steps through
 the sharded trainer (``parallel/train.py``: W and bias over 'tp', the
 minibatch over 'dp') from phase 11's parameters and indices, against phase
 11's losses and weights, then the port's dry run
-(``parallel/dryrun.dryrun_multichip``).  Phase 7 also
+(``parallel/dryrun.dryrun_multichip``).  Phase 29 drives the port's
+experiment and demo drivers (``lqp_py_tpu_torch.experiments`` and
+``lqp_py_tpu_torch.demo``) at their published width (B=128, f32, tol 1e-5,
+each driver's own n; only depth is cut, and each line says how), with
+their own gates, every artifact in a temporary directory: Experiment 1's
+six GPU columns at n=1000 (the native C++ column, built from
+``native/lqp_native.cpp`` into ``build/``, at n=250), Experiment 2, the
+serving and straggler drivers (the early-exit GEMV counted), the
+tolerance sweep, the hard set, the Anderson and IP-accuracy sweeps, the
+scaling driver on two gloo ranks, the five demos, and the README renderer
+on a copy of README.  Phase 7 also
 holds the GEMV's rectangular form, the tp step's (128, 1024, 512) block,
 against its plain version at 0/50/90% converged, timed beside ``P @ r``.
 A failed rank fails the phase.  Every phase raises on failure.  The line
@@ -141,6 +151,20 @@ W_SEED, PAR_TIMEOUT_S = 7, 300
 # each of its iterations would exchange a (128, 2000, 500) f32 block of G
 # (512 MB) through the host.
 N_COND = 256
+# Phase 29: the port's experiment and demo drivers at their published width
+# (B=128, f32, tol 1e-5, each driver's own n; Experiment 2 at N_X2...).
+# Only depth is cut, and the phase's lines print each cut.  The native C++
+# column runs at n=250: at n=1000 its sequential solve of 128 problems
+# (37.7 s in exp1_results.json, a capture on another host's CPU) does not
+# fit the time.
+D29 = {"exp1_n": 1000, "native_n": 250, "serving_n": 500,
+       "straggler_n": 1000, "paper_n": 500, "hard_n": 500, "aa_n": 250,
+       "aa_batch": 64, "ip_n": 1000, "demo_n": 500, "layer_n": 1000,
+       "layer_batch": 32, "scaling_n": 64, "scaling_batch": 8}
+# Phase 29's demo gates: the f32 solve against the native C++ solver in
+# f64 (3.8e-6 on the card), and the layer demo's KKT and unrolled dp
+# against the fixed-point one (1.5e-6 and 1.8e-6).
+DEMO_NATIVE_TOL, DEMO_DP_TOL = 1e-3, 1e-3
 
 
 def _check(cond, msg):
@@ -1837,6 +1861,9 @@ def main():
     ref.update(x5=x5, it5=it5, x64_5=x64_5)
     par = _parallel_phases(dev, ref)
 
+    # 29. The port's experiment and demo drivers.
+    drivers = _phase_29(dev)
+
     print(json.dumps({"kernels": [{
         "name": "sweep_spd_inverse", "route": "cuda",
         "source": "lqp_py_tpu_torch/csrc/sweep_spd_inverse.cu",
@@ -1860,6 +1887,7 @@ def main():
         "launches_tp_optnet_eq_per_rank": par["launches_tp_optnet_eq"],
         "launches_train_sharded_per_rank": par["launches_train_sharded"],
         "launches_dryrun_per_rank": par["launches_dryrun"],
+        "launches_drivers": {k: v[0] for k, v in drivers.items()},
         "err_ip_vs_f64": err16_k,
         "plain_err_ip_vs_f64": err16_p,
         "max_abs_err": max_abs, "ms": kernel_ms, "ms_paced": paced_ms,
@@ -1874,6 +1902,7 @@ def main():
         "launches_big_batch": launches_big, "max_abs_err_big_batch": errb,
         "launches_tp": par["launches_gemv_tp"],
         "launches_tp_per_rank": par["launches_gemv_tp_per_rank"],
+        "launches_drivers": {k: v[1] for k, v in drivers.items() if v[1]},
         "ms_rect": rect[0.0]["ms"], "plain_ms_rect": rect[0.0]["plain_ms"],
         "library_ms_rect": rect[0.0]["library_ms"],
         "bound_ms_rect": rect[0.0]["bound"][0],
@@ -1906,6 +1935,268 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def _phase_29(dev):
+    """Phase 29: the port's drivers (``lqp_py_tpu_torch.experiments`` and
+    ``lqp_py_tpu_torch.demo``) on this card at their published width
+    (``D29``), each through the pieces or the ``main`` a user calls, with
+    the drivers' own gates; every artifact goes to a temporary directory,
+    and the README renderer renders into a copy of README.  Returns
+    ``{driver: (leaf launches, GEMV launches)}`` of each driver's run."""
+    import contextlib
+    import io
+    import shutil
+
+    from lqp_py_tpu_torch.cpu import native
+    from lqp_py_tpu_torch.demo import (demo_box_qp_layer, demo_polish,
+                                       demo_solve_box_qp,
+                                       demo_solve_box_qp_numpy,
+                                       demo_status_reporting)
+    from lqp_py_tpu_torch.experiments import experiment_1 as e1
+    from lqp_py_tpu_torch.experiments import (experiment_1_hard,
+                                              experiment_1_paper,
+                                              experiment_2, experiment_aa,
+                                              experiment_ip_accuracy,
+                                              experiment_scaling,
+                                              experiment_serving,
+                                              experiment_straggler,
+                                              render_readme)
+    from lqp_py_tpu_torch.ops.kernels import admm_step as gk
+    from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+    from lqp_py_tpu_torch.utils.generators import create_qp_data
+
+    d, dv = D29, ["--device", DEVICE]
+    launches, walls = {}, {}
+    t29 = time.perf_counter()
+
+    def run(name, fn):
+        """``fn()`` with the driver's own output captured (printed only
+        if it fails); its leaf and GEMV launches and wall seconds."""
+        buf = io.StringIO()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        sk.LAUNCHES, gk.LAUNCHES = 0, 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(buf):
+                out = fn()
+        except BaseException:
+            print(buf.getvalue())
+            raise
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        launches[name] = (sk.LAUNCHES, gk.LAUNCHES)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def art(name):
+        return json.loads((Path(out) / name).read_text())
+
+    _check(native.available() or DEVICE == "cpu",
+           "the native C++ solver did not build from native/lqp_native.cpp "
+           "(cpu/native.py, g++)")
+    with tempfile.TemporaryDirectory() as out:
+        # Experiment 1: every GPU column at n=exp1_n with its gates, the
+        # native column at native_n; the artifact through e1.save.
+        n1 = d["exp1_n"]
+        r1 = run("exp1", lambda: e1.run_size(n1, B, TOL, 2, True, dev,
+                                             include_native=False))
+        data_n = create_qp_data(d["native_n"], B, seed=0,
+                                dtype=torch.float32, device=dev)
+        results1 = {n1: r1}
+        if native.available():
+            results1[d["native_n"]] = {"Native_CPU_fwd": run(
+                "native", lambda: e1.native_column(data_n, TOL))}
+        del data_n
+        with contextlib.redirect_stdout(io.StringIO()):
+            e1.save(out, results1, dev, B, TOL, 2)
+        peak = r1["ADMM_Unroll"].get("peak_mem_bytes")
+        print(f"phase 29 Experiment 1 (experiment_1.run_size, n={n1}, "
+              f"B={B}, f32, tol {TOL:g}; cut: sizes {{{n1}}} of 10-1000, "
+              f"n_sims 2 of 5, the native column at n={d['native_n']}): "
+              + "; ".join(
+                  f"{k} total {v['total'] * 1e3:.2f} ms (fwd "
+                  f"{v['fwd'] * 1e3:.2f}, device_total "
+                  f"{v['device_total'] * 1e3:.2f}), "
+                  f"{v.get('n_converged', '-')}/{B} converged, "
+                  f"{v.get('iterations', '-')} it, max|x - x_tight| "
+                  f"{v['max_dev_x_vs_tight']:.2e}" for k, v in r1.items())
+              + f" (all < DEV_GATE {e1.DEV_GATE:g}); the unrolled column's "
+              f"peak {peak / 2**30 if peak else float('nan'):.2f} GiB; "
+              + (f"native fwd at n={d['native_n']} "
+                 f"{results1[d['native_n']]['Native_CPU_fwd']['fwd']:.2f} s; "
+                 if d["native_n"] in results1 else "native unavailable; ")
+              + f"{launches['exp1'][0]} leaf launches; "
+              f"{walls['exp1']:.1f} s")
+
+        # Experiment 2: both paths and their gate.
+        run("exp2", lambda: experiment_2.main([
+            "--n-x", str(N_X2), "--n-features", str(N_FEAT2), "--n-batch",
+            str(N_BATCH2), "--mini-batch", str(MINI2), "--epochs",
+            str(STEPS2), "--lr", str(LR2), *dv, "--out-dir", out]))
+        a2 = art(experiment_2.ARTIFACT)
+        print(f"phase 29 Experiment 2 (experiment_2.main, n_x={N_X2}, "
+              f"{N_FEAT2} features, minibatch {MINI2} of {N_BATCH2}, lr "
+              f"{LR2:g}; cut: {STEPS2} epochs of 100): per-step "
+              f"{a2['total_time_s']:.3f} s, whole horizon "
+              f"{a2['fused_total_s']:.3f} s (first run "
+              f"{a2['fused_compile_s']:.3f}); loss {a2['losses'][0]:.5f} -> "
+              f"{a2['losses'][-1]:.5f}, paths agree to "
+              f"{a2['fused_vs_loop_loss_dev']:.2e}; "
+              f"{launches['exp2'][0]} leaf launches; {walls['exp2']:.1f} s")
+
+        run("serving", lambda: experiment_serving.main([
+            "--n-x", str(d["serving_n"]), "--n-batch", str(B), "--steps",
+            "5", *dv, "--out-dir", out]))
+        a = art(experiment_serving.ARTIFACT)
+        print(f"phase 29 serving (experiment_serving.main, n={a['n_x']}, "
+              f"B={B}; cut: 5 steps of 20): cold median "
+              f"{statistics.median(a['cold']) * 1e3:.2f} ms "
+              f"({a['cold_iters']} it), warm "
+              f"{statistics.median(a['warm']) * 1e3:.2f} ms "
+              f"({a['warm_iters']} it), rollout "
+              f"{a['fused_per_solve'] * 1e3:.2f} ms/solve, GenQP rollout "
+              f"{a['genqp_fused_per_solve'] * 1e3:.2f} ms/solve; "
+              f"{launches['serving'][0]} leaf launches; "
+              f"{walls['serving']:.1f} s")
+
+        run("straggler", lambda: experiment_straggler.main([
+            "--n-x", str(d["straggler_n"]), "--n-batch", str(B), "--n-hard",
+            str(N_HARD), "--n-reps", "2", *dv, "--out-dir", out]))
+        a = art(experiment_straggler.ARTIFACT)["results"][
+            str(d["straggler_n"])]
+        print(f"phase 29 straggler (experiment_straggler.main, n="
+              f"{a['n_x']}, {a['n_hard']} hard of {B}; cut: n_reps 2 of 7): "
+              + "; ".join(f"{k} {a[k]['median_s'] * 1e3:.2f} ms, "
+                          f"{a[k]['iterations']} it, {a[k]['n_converged']}/"
+                          f"{B} converged" for k in ("xla_step",
+                                                     "pallas_step"))
+              + f"; max dx between paths {a['max_dx_between_paths']:.2e}; "
+              f"{launches['straggler'][1]} GEMV launches, "
+              f"{launches['straggler'][0]} leaf launches; "
+              f"{walls['straggler']:.1f} s")
+        _check(launches["straggler"][1] > 0,
+               "the straggler driver's early-exit column launched no GEMV")
+
+        run("exp1_paper", lambda: experiment_1_paper.main([
+            "--n-x", str(d["paper_n"]), "--n-batch", str(B), "--n-sims",
+            "1", *dv, "--out-dir", out]))
+        a = art(experiment_1_paper.ARTIFACT)["results"]
+        print(f"phase 29 Experiment 1 paper (experiment_1_paper.main, dz="
+              f"{d['paper_n']}, tols 1e-1/1e-3/1e-5; cut: n_sims 1 of 10): "
+              + ", ".join(f"{k} {v['total'] * 1e3:.1f}" for k, v in a.items())
+              + f" ms; {launches['exp1_paper'][0]} leaf launches; "
+              f"{walls['exp1_paper']:.1f} s")
+
+        run("exp1_hard", lambda: experiment_1_hard.main([
+            "--sizes", str(d["hard_n"]), "--n-batch", str(B), "--n-sims",
+            "1", *dv, "--out-dir", out]))
+        a = art(experiment_1_hard.ARTIFACT)["results"][str(d["hard_n"])]
+        print(f"phase 29 Experiment 1 hard (experiment_1_hard.main, n="
+              f"{d['hard_n']}; cut: sizes {{{d['hard_n']}}} of 50-500, "
+              f"n_sims 1 of 5): " + ", ".join(
+                  f"{k} {v * 1e3:.1f} ms" if isinstance(v, float)
+                  else f"{k} {v}" for k, v in a.items())
+              + f"; {launches['exp1_hard'][0]} leaf launches; "
+              f"{walls['exp1_hard']:.1f} s")
+
+        run("aa", lambda: experiment_aa.main([
+            "--sizes", str(d["aa_n"]), "--n-batch", str(d["aa_batch"]),
+            "--n-sims", "1", *dv, "--out-dir", out]))
+        a = art(experiment_aa.ARTIFACT)["results"]
+        print(f"phase 29 Anderson (experiment_aa.main, n={d['aa_n']}, B="
+              f"{d['aa_batch']}, windows 10/20; cut: sizes {{{d['aa_n']}}} "
+              f"of 50-250, n_sims 1 of 5): " + "; ".join(
+                  f"{cell} " + ", ".join(
+                      f"{k} {v['iters']} it {v['n_converged']} conv"
+                      for k, v in rec.items()) for cell, rec in a.items())
+              + f"; {launches['aa'][0]} leaf launches; {walls['aa']:.1f} s")
+
+        run("ip_accuracy", lambda: experiment_ip_accuracy.main([
+            "--sizes", str(d["ip_n"]), "--n-batch", str(B), "--n-reps", "1",
+            "--n-oracle", "2", *dv, "--out-dir", out]))
+        a = art(experiment_ip_accuracy.ARTIFACT)["cells"]
+        print(f"phase 29 IP accuracy (experiment_ip_accuracy.main, n="
+              f"{d['ip_n']}; cut: sizes {{{d['ip_n']}}} of 500/1000, n_reps "
+              f"1 of 5, n_oracle 2 of 8): " + "; ".join(
+                  f"{c['solver']} r{c['refine_steps']} "
+                  f"{'pol' if c['polish'] else 'plain'} f64 "
+                  f"{c['max_dev_x_vs_f64']:.1e} tight "
+                  f"{c['max_dev_x_vs_tight']:.1e} {c['fwd_s'] * 1e3:.1f} ms"
+                  for c in a)
+              + f"; {launches['ip_accuracy'][0]} leaf launches; "
+              f"{walls['ip_accuracy']:.1f} s")
+
+        worlds = run("scaling", lambda: experiment_scaling.main([
+            "--nproc", "2", "--backend", "gloo", "--n-x",
+            str(d["scaling_n"]), "--per-dev-batch", str(d["scaling_batch"]),
+            "--timeout", str(PAR_TIMEOUT_S), *dv]))
+        print(f"phase 29 scaling (experiment_scaling.main, two gloo ranks "
+              f"on the card, n={d['scaling_n']}, {d['scaling_batch']} a "
+              f"rank): " + "; ".join(
+                  f"world {w}: |dx| lock-step "
+                  f"{max(r['err_sharded'] for r in ranks):.1e}, shard_map "
+                  f"{max(r['err_shard_map'] for r in ranks):.1e}"
+                  for w, ranks in worlds.items())
+              + f"; tp=2 |dx| {max(r['err_tp'] for r in worlds[2]):.1e} "
+              f"(all < {experiment_scaling.GATE:g}); "
+              f"{walls['scaling']:.1f} s")
+
+        err_native = run("demo_solve_box_qp", lambda: demo_solve_box_qp.main(
+            ["--n-x", str(d["demo_n"]), "--n-batch", str(B), *dv]))
+        diffs = run("demo_box_qp_layer", lambda: demo_box_qp_layer.main(
+            ["--n-x", str(d["layer_n"]), "--n-batch",
+             str(d["layer_batch"]), *dv]))
+        rows = run("demo_polish", lambda: demo_polish.main(dv))
+        run("demo_status_reporting", lambda: demo_status_reporting.main(dv))
+        dx_np = run("demo_solve_box_qp_numpy",
+                    lambda: demo_solve_box_qp_numpy.main(dv))
+        print(f"phase 29 demos (published sizes, no cut): solve n="
+              f"{d['demo_n']} B={B} vs native "
+              + (f"{err_native:.2e} (<= {DEMO_NATIVE_TOL:g})"
+                 if err_native is not None else "n/a")
+              + f"; layer n={d['layer_n']} B={d['layer_batch']} kkt/unroll "
+              f"vs fixed point max|ddp| {diffs['kkt'][1]:.2e}/"
+              f"{diffs['unroll'][1]:.2e} (<= {DEMO_DP_TOL:g}); polish "
+              f"loose+polish max|x - x*| {rows['loose + polish'][1]:.1e}; "
+              f"status: infeasibility certified; numpy vs torch "
+              f"{dx_np:.2e} (< 1e-5); " + ", ".join(
+                  f"{k} {launches[k][0]} leaves {walls[k]:.1f} s"
+                  for k in launches if k.startswith("demo")))
+        # Native is None only where g++ is missing, which the phase's
+        # first check allows on the CPU alone.
+        _check(err_native is None or err_native <= DEMO_NATIVE_TOL,
+               f"demo_solve_box_qp: max|x - x_native| {err_native:.2e} > "
+               f"{DEMO_NATIVE_TOL:g}")
+        for name, (_, ddp) in diffs.items():
+            _check(ddp <= DEMO_DP_TOL, f"demo_box_qp_layer: {name} dp is "
+                   f"{ddp:.2e} from the fixed-point dp (> {DEMO_DP_TOL:g})")
+
+        readme = Path(out) / "README.md"
+        shutil.copy(Path(__file__).resolve().parent / "README.md", readme)
+        jax_block = readme.read_text().split(
+            "<!-- BEGIN AUTOGEN NUMBERS")[1].split(
+            "<!-- END AUTOGEN NUMBERS -->")[0]
+        run("render_readme", lambda: render_readme.main(
+            ["--readme", str(readme), "--artifacts-dir", out]))
+        text = readme.read_text()
+        block = text.split(render_readme.BEGIN)[1].split(
+            render_readme.END)[0]
+        _check("not captured" not in block,
+               "the rendered port block lacks an artifact phase 29 wrote")
+        _check(jax_block in text, "the renderer changed the JAX block")
+        n_art = len(list(Path(out).glob("*_torch.json")))
+        print(f"phase 29 README renderer (render_readme.main on a copy): "
+              f"{len(block.splitlines())} lines from the {n_art} "
+              f"artifacts, the JAX block unchanged")
+    for name in ("exp1", "exp2", "serving", "straggler", "exp1_paper",
+                 "exp1_hard", "aa", "ip_accuracy", "demo_solve_box_qp",
+                 "demo_box_qp_layer"):
+        _check(launches[name][0] > 0, f"phase 29: {name} launched no leaf")
+    print(f"phase 29 drivers: {time.perf_counter() - t29:.1f} s in all")
+    return launches
 
 
 def _parallel_phases(dev, ref):

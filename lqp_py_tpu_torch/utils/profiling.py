@@ -5,6 +5,10 @@
   writes a Chrome trace of everything inside into ``logdir``, the card's
   kernels included where there is a card.
 - ``force(tree)``: wait for the devices of the tensors in a tree.
+- ``clock(fn, device)``: one call's wall time, from an idle device to the
+  end of its last kernel (``force``); the drivers' timed window.
+- ``resolve_device(name)``: an entry point's ``--device``, raising where
+  it names the card and there is none.
 - ``timed(fn, *args)``: steady-state time of ``fn(*args)``, by CUDA events
   when ``fn`` returns tensors on the card, by the host clock otherwise.
 - ``solve_stats(sol)``: a solution's iterations, residuals and convergence
@@ -73,6 +77,29 @@ def force(tree):
     for index in _cuda_devices(tree):
         torch.cuda.synchronize(index)
     return tree
+
+
+def resolve_device(name) -> torch.device:
+    """``torch.device(name)``; a CUDA device without a card raises (there is
+    no CPU fallback: pass ``--device cpu``)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this entry point runs on the card "
+                           "by default; pass --device cpu to run it on the "
+                           "CPU")
+    return dev
+
+
+def clock(fn: Callable, device):
+    """``(fn(), seconds)``: the host's wall time of one call of ``fn``, from
+    an idle ``device`` to the end of its last kernel there (``force`` of a
+    tensor on it, before and after)."""
+    idle = torch.empty(0, device=device)
+    force(idle)
+    t0 = time.perf_counter()
+    out = fn()
+    force(idle)
+    return out, time.perf_counter() - t0
 
 
 def timed(fn: Callable, *args, n: int = 5, warmup: int = 1) -> Dict:

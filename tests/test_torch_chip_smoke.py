@@ -7,78 +7,25 @@ script's own Python shows here and not first on the card.  Its numbers mean
 nothing on the CPU; the gates that only the kernels can meet are left
 out: the early-exit GEMV's 90%/0% time ratio and the block inverse's
 exactly symmetric output (the plain version computes both triangles).
+Phase 29, the drivers, has its own rehearsal
+(tests/test_torch_chip_smoke_drivers.py).
 """
 
-import importlib.util
 import json
 import subprocess
 import sys
-import time
-import types
 from pathlib import Path
 
 import pytest
 import torch
 
-from lqp_py_tpu_torch.ops import linalg as tlin
-from lqp_py_tpu_torch.ops.kernels import _build
-from lqp_py_tpu_torch.ops.kernels import admm_step as gk
-from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
-from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
+from _chip_smoke_stub import load_stubbed
 
 REPO = Path(__file__).resolve().parents[1]
 
 
-class _HostEvent:
-    def __init__(self, enable_timing=True):
-        self.t = None
-
-    def record(self):
-        self.t = time.perf_counter()
-
-    def elapsed_time(self, end):
-        return (end.t - self.t) * 1e3
-
-
-def _counting(module, plain):
-    def wrapper(*args):
-        module.LAUNCHES += 1
-        return plain(*args)
-    return wrapper
-
-
 def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-
-    for name, value in (("is_available", lambda: True),
-                        ("set_device", lambda d: None),
-                        ("get_device_name", lambda i=0: "rehearsal"),
-                        ("device_count", lambda: 1),
-                        ("synchronize", lambda *a: None),
-                        ("_sleep", lambda cycles: None),
-                        ("reset_peak_memory_stats", lambda *a: None),
-                        ("memory_allocated", lambda *a: 0),
-                        ("max_memory_allocated", lambda *a: 1),
-                        ("Event", _HostEvent)):
-        monkeypatch.setattr(torch.cuda, name, value)
-    monkeypatch.setattr(cs, "subprocess", types.SimpleNamespace(
-        run=lambda *a, **k: types.SimpleNamespace(stdout="rehearsal, 0 W")))
-    monkeypatch.setattr(_build, "load_library", lambda: None)
-    monkeypatch.setattr(_build, "library_path", lambda: Path("stub.so"))
-    monkeypatch.setattr(_build, "kernel_attributes",
-                        lambda kernel: {"regs": 1, "local_bytes": 0})
-    for mod in (sk, gk, bk):
-        monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)
-    leaf = _counting(sk, sk.sweep_spd_inverse_ref)
-    monkeypatch.setattr(sk, "sweep_spd_inverse", leaf)
-    monkeypatch.setattr(tlin, "sweep_spd_inverse", leaf)
-    monkeypatch.setattr(gk, "gemv_early_exit",
-                        _counting(gk, gk.gemv_early_exit_ref))
-    monkeypatch.setattr(bk, "block_spd_inverse",
-                        _counting(bk, bk.block_spd_inverse_ref))
+    cs = load_stubbed(monkeypatch)
     check = cs._check
     monkeypatch.setattr(cs, "_check", lambda cond, msg: check(
         cond or "frozen panels are read" in msg or "not symmetric" in msg,
@@ -88,6 +35,8 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
                         ("N_INEQ", 100), ("N_CONIC", 40), ("N_COND", 64),
                         ("DEVICE", "cpu")):
         monkeypatch.setattr(cs, name, value)
+    # Phase 29 has its own rehearsal (tests/test_torch_chip_smoke_drivers.py).
+    monkeypatch.setattr(cs, "_phase_29", lambda dev: {})
 
     cs.main()
     lines = capsys.readouterr().out.splitlines()

@@ -130,6 +130,14 @@ PORT_MODULES = sorted(
     if f.name != "__init__.py")
 
 
+DRIVERS = ("experiment_1", "experiment_1_paper", "experiment_1_hard",
+           "experiment_2", "experiment_2_paper", "experiment_serving",
+           "experiment_straggler", "experiment_aa", "experiment_ip_accuracy",
+           "experiment_scaling")
+DEMOS = ("demo_solve_box_qp", "demo_box_qp_layer", "demo_polish",
+         "demo_status_reporting", "demo_solve_box_qp_numpy")
+
+
 def test_import_leaves_jax_out():
     assert {"lqp_py_tpu_torch.models.box_qp_grad",
             "lqp_py_tpu_torch.models.layers", "lqp_py_tpu_torch.models.train",
@@ -143,7 +151,13 @@ def test_import_leaves_jax_out():
             "lqp_py_tpu_torch.models.genqp",
             "lqp_py_tpu_torch.models.conic_grad",
             "lqp_py_tpu_torch.utils.profiling",
-            "lqp_py_tpu_torch.utils.checkpoint"} <= set(PORT_MODULES)
+            "lqp_py_tpu_torch.utils.checkpoint",
+            "lqp_py_tpu_torch.cpu.boxqp_numpy", "lqp_py_tpu_torch.cpu.native",
+            *(f"lqp_py_tpu_torch.experiments.{m}" for m in DRIVERS),
+            "lqp_py_tpu_torch.experiments.render_readme",
+            "lqp_py_tpu_torch.experiments.plotting",
+            *(f"lqp_py_tpu_torch.demo.{m}" for m in DEMOS)} <= set(
+                PORT_MODULES)
     code = ("import sys, importlib\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -330,3 +344,19 @@ def test_data_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             generators.create_qp_data(4, 2)
+
+
+@pytest.mark.parametrize("module", [f"experiments.{m}" for m in DRIVERS]
+                         + [f"demo.{m}" for m in DEMOS])
+def test_drivers_run_on_the_card_by_default(module):
+    """Every driver and demo takes ``--device``, default ``cuda``: without a
+    card and without ``--device cpu`` it raises before any work (the
+    paper renderer runs Experiment 2 on the card with ``--run``)."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    mod = importlib.import_module(f"lqp_py_tpu_torch.{module}")
+    argv = ["--run"] if module.endswith("experiment_2_paper") else []
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        mod.main(argv)

@@ -72,3 +72,21 @@ def test_force_returns_its_tree_and_trace_writes_a_file(tmp_path):
     assert len(files) == 1 and files[0].suffix == ".json"
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+
+
+def test_clock_returns_the_call_and_its_seconds(monkeypatch):
+    out, seconds = tprof.clock(lambda: torch.ones(3) * 2, "cpu")
+    assert torch.equal(out, torch.full((3,), 2.0)) and seconds >= 0
+    # On a card it waits for that device before and after the call, by
+    # ``force``; here a stubbed card records the waits.
+    waits = []
+    monkeypatch.setattr(tprof, "force", lambda tree: waits.append(tree))
+    tprof.clock(lambda: None, "cpu")
+    assert len(waits) == 2
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    assert tprof.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tprof.resolve_device("cuda")
