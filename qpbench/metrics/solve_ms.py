@@ -1,0 +1,5 @@
+"""The whole window over the solves completed in it."""
+
+
+def read(run):
+    return 1e3 * run.window_s / len(run.records)
