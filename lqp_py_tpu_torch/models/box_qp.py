@@ -48,6 +48,7 @@ from lqp_py_tpu_torch.ops.kernels.admm_step import fused_admm_step
 from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import BoxQPSolution, as_vector
+from lqp_py_tpu_torch.utils.profiling import span
 
 _ZERO_CLAMP = 1e-16
 
@@ -87,53 +88,59 @@ def _prep(Q, p, A, b, lb, ub, config, pad: int = 0):
     unscaled p-norm, the scaled problem (``scale_problem`` or
     ``identity_scaling``, differentiable in every input) and rho.
     Returns ``(ScaledProblem, p_norm, rho)``."""
-    Q, p, A, b, lb, ub = _canonical(Q, p, A, b, lb, ub, config)
-    B, n = p.shape
-    p_norm = _inf_norm(p)
-    if config.scale:
-        sp = sca.scale_problem(Q, p, A, b, lb, ub, beta=config.beta, pad=pad)
-    else:
-        sp = sca.identity_scaling(Q, p, A, b, lb, ub, pad=pad)
-    if config.rho is None:
-        # The identity pad block contributes exactly ``pad`` to sum(Q^2).
-        q_fro = torch.sqrt(torch.clamp(
-            (sp.Q * sp.Q).sum(dim=(-1, -2)) - pad, min=0.0))
-        rho = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
-                          config.rho_min, config.rho_max)
-    else:
-        rho = torch.full((B,), float(config.rho), dtype=p.dtype,
-                         device=p.device)
-    # With no finite bound anywhere in the batch rho is forced to 0.
-    any_ineq = _any_finite(lb, ub)
-    return sp, p_norm, torch.where(any_ineq, rho, torch.zeros_like(rho))
+    with span("lqp.scale"):
+        Q, p, A, b, lb, ub = _canonical(Q, p, A, b, lb, ub, config)
+        B, n = p.shape
+        p_norm = _inf_norm(p)
+        if config.scale:
+            sp = sca.scale_problem(Q, p, A, b, lb, ub, beta=config.beta,
+                                   pad=pad)
+        else:
+            sp = sca.identity_scaling(Q, p, A, b, lb, ub, pad=pad)
+        if config.rho is None:
+            # The identity pad block contributes exactly ``pad`` to
+            # sum(Q^2).
+            q_fro = torch.sqrt(torch.clamp(
+                (sp.Q * sp.Q).sum(dim=(-1, -2)) - pad, min=0.0))
+            rho = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
+                              config.rho_min, config.rho_max)
+        else:
+            rho = torch.full((B,), float(config.rho), dtype=p.dtype,
+                             device=p.device)
+        # With no finite bound anywhere in the batch rho is forced to 0.
+        any_ineq = _any_finite(lb, ub)
+        return sp, p_norm, torch.where(any_ineq, rho,
+                                       torch.zeros_like(rho))
 
 
 def _prep_h(Q, p, A, b, lb, ub, config, pad: int = 0):
     """Canonicalize shapes, take the unscaled p-norm, and build the scaled,
     lane-padded factorization operand ``H = D Q D + rho I`` in one pass
     (``scale_problem_h``).  Every input moves to Q's device and dtype."""
-    Q, p, A, b, lb, ub = _canonical(Q, p, A, b, lb, ub, config)
-    kw = dict(dtype=Q.dtype, device=Q.device)
-    B, n = p.shape
+    with span("lqp.scale"):
+        Q, p, A, b, lb, ub = _canonical(Q, p, A, b, lb, ub, config)
+        kw = dict(dtype=Q.dtype, device=Q.device)
+        B, n = p.shape
 
-    # The dual tolerance uses the unscaled p-norm.
-    p_norm = _inf_norm(p)
-    # With no finite bound anywhere in the batch the box projection is the
-    # identity and rho is forced to 0: ADMM then converges in one step.
-    any_ineq = _any_finite(lb, ub)
+        # The dual tolerance uses the unscaled p-norm.
+        p_norm = _inf_norm(p)
+        # With no finite bound anywhere in the batch the box projection is
+        # the identity and rho is forced to 0: ADMM then converges in one
+        # step.
+        any_ineq = _any_finite(lb, ub)
 
-    def rho_fn(D, q_fro):
-        if config.rho is None:
-            r = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
-                            config.rho_min, config.rho_max)
-        else:
-            r = torch.full((B,), float(config.rho), **kw)
-        return torch.where(any_ineq, r, torch.zeros_like(r))
+        def rho_fn(D, q_fro):
+            if config.rho is None:
+                r = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
+                                config.rho_min, config.rho_max)
+            else:
+                r = torch.full((B,), float(config.rho), **kw)
+            return torch.where(any_ineq, r, torch.zeros_like(r))
 
-    sph, rho = sca.scale_problem_h(Q, p, A, b, lb, ub, rho_fn,
-                                   beta=config.beta, pad=pad,
-                                   scale=config.scale)
-    return sph, p_norm, rho
+        sph, rho = sca.scale_problem_h(Q, p, A, b, lb, ub, rho_fn,
+                                       beta=config.beta, pad=pad,
+                                       scale=config.scale)
+        return sph, p_norm, rho
 
 
 def _mode(config: BoxQPConfig) -> str:
@@ -256,9 +263,10 @@ def prepare_box_qp(Q, A=None, b=None, lb=None, ub=None,
     p0 = Q.new_zeros(Q.shape[:-1])
     n_pad, use_pallas = _padded_n(config, n, mode)
     sph, _p_norm, rho0 = _prep_h(Q, p0, A, b, lb, ub, config, pad=n_pad - n)
-    factors = lin.factorize_kkt(sph.H, None, sph.A, mode=mode,
-                                equilibrate=not config.scale,
-                                materialize_p=use_pallas)
+    with span("lqp.factorize"):
+        factors = lin.factorize_kkt(sph.H, None, sph.A, mode=mode,
+                                    equilibrate=not config.scale,
+                                    materialize_p=use_pallas)
     return BoxQPPrepared(H=sph.H, As=sph.A, bs=sph.b, lbs=sph.lb,
                          ubs=sph.ub, D=sph.D, E=sph.E, rho0=rho0,
                          factors=factors, mode=mode)
@@ -303,14 +311,15 @@ class _KKTOperator:
         """Factors of ``H0`` shifted to ``rho`` (``None``: ``H0`` itself).
         Only the leading-n diagonal shifts: the pad block's identity stays
         put, so a downward rho move cannot push its pivots toward zero."""
-        H = self.H0
-        if rho is not None:
-            H = H.clone()
-            H.diagonal(dim1=-2, dim2=-1)[:, :self.n] += (
-                rho - self.rho0)[:, None]
-        return lin.factorize_kkt(H, None, self.As, mode=self.mode,
-                                 equilibrate=self.equilibrate,
-                                 materialize_p=self.use_pallas)
+        with span("lqp.factorize"):
+            H = self.H0
+            if rho is not None:
+                H = H.clone()
+                H.diagonal(dim1=-2, dim2=-1)[:, :self.n] += (
+                    rho - self.rho0)[:, None]
+            return lin.factorize_kkt(H, None, self.As, mode=self.mode,
+                                     equilibrate=self.equilibrate,
+                                     materialize_p=self.use_pallas)
 
     def step_constant(self, f: lin.KKTFactors):
         """``q`` of the x-update ``x = P r + q``."""
@@ -464,169 +473,176 @@ def _solve_scaled(config, ps, As, bs, lbs, ubs, D, E, p_norm, rho0,
         g = collective.batch_max(torch.stack(
             [(~(is_optimal | pinf)).any().to(dtype),
              rho_pending.any().to(dtype), *maxima]))
-        busy, pending = (g[:2] > 0).tolist()
+        positive = g[:2] > 0
+        with span("lqp.check"):
+            busy, pending = positive.tolist()
         return not busy, pending, g[2:]
 
-    done, pending, _ = flags()
-    while True:
-        # Inner loop: residual-check blocks until every element is done,
-        # the iteration cap is hit, or some element's rho must update.
-        while it < max_iters and not done and not pending:
-            # The first check comes after a single iteration, then every cs.
-            n_inner = min(1 if it == 0 else cs, max_iters - it)
-            rho_c = rho[..., None]
-            if use_pallas:
-                # Early-exit step, frozen where the last check found an
-                # element optimal.  alpha is static here: no collapse to 1
-                # without finite bounds (the JAX package's fused step
-                # assumes a genuinely box-constrained problem).
-                a = float(config.alpha)
-                r = -ps_p + rho_c * (z - u)
-                for _ in range(n_inner):
-                    z_prev = z
-                    x, z, u, r = fused_admm_step(
-                        factors.P, r, x, z, u, ps_p, q, lbs_p, ubs_p, rho,
-                        is_optimal, alpha=a, gemv=kkt.gemv)
-                # r now feeds the next iteration.  The r that produced x is
-                # rebuilt by inverting the (relaxed) dual update
-                # u = u_prev + (a x + (1 - a) z_prev - z); frozen elements
-                # keep the r that actually produced their x.
-                u_prev = u - (a * x + (1.0 - a) * z_prev - z)
-                last_r = torch.where(is_optimal[:, None], last_r,
-                                     -ps_p + rho_c * (z_prev - u_prev))
-            else:
-                for i in range(n_inner):
+    with span("lqp.loop"):
+        done, pending, _ = flags()
+        while True:
+            # Inner loop: residual-check blocks until every element is done,
+            # the iteration cap is hit, or some element's rho must update.
+            while it < max_iters and not done and not pending:
+                # The first check comes after a single iteration, then every
+                # cs.
+                n_inner = min(1 if it == 0 else cs, max_iters - it)
+                rho_c = rho[..., None]
+                if use_pallas:
+                    # Early-exit step, frozen where the last check found an
+                    # element optimal.  alpha is static here: no collapse to 1
+                    # without finite bounds (the JAX package's fused step
+                    # assumes a genuinely box-constrained problem).
+                    a = float(config.alpha)
                     r = -ps_p + rho_c * (z - u)
-                    x = kkt.x_update(factors, q, r)
-                    z_prev = z
-                    xh = alpha_t * x + (1.0 - alpha_t) * z if has_alpha else x
-                    z_new = torch.clamp(xh + u, lbs_p, ubs_p)
-                    u_new = u + (xh - z_new)
-                    if m_aa:
-                        # A safeguarded Anderson step on v = [z; u]; padded
-                        # coordinates stay 0 (every history column is 0
-                        # there).
-                        v_next, aa = anderson.aa_step(
-                            aa, torch.cat([z, u], dim=-1),
-                            torch.cat([z_new, u_new], dim=-1),
-                            (it + i) % m_aa, hold=is_optimal,
-                            safeguard=float(config.aa_safeguard),
-                            reg=float(config.aa_reg),
-                            max_weight=float(config.aa_max_weight))
-                        z_new, u_new = v_next[:, :n_pad], v_next[:, n_pad:]
-                    z, u = z_new, u_new
-                last_r = r
-            xs_c, zs_c, us_c, zp_c = (v[:, :n] for v in (x, z, u, z_prev))
-
-            # Equality duals implied by the current factored solve, and
-            # A^T of them and of their change since the last check.
-            nu_s = dnu = None
-            if As is not None:
-                nu_s = lin._mv(factors.Sinv, lin._mv(factors.W.mT, last_r)
-                               - bs)
-                if config.detect_infeasibility:
-                    dnu = nu_s - nu_chk
-                    at_nu, at_dnu = kkt.at_mv(nu_s, dnu)
+                    for _ in range(n_inner):
+                        z_prev = z
+                        x, z, u, r = fused_admm_step(
+                            factors.P, r, x, z, u, ps_p, q, lbs_p, ubs_p, rho,
+                            is_optimal, alpha=a, gemv=kkt.gemv)
+                    # r now feeds the next iteration.  The r that produced x is
+                    # rebuilt by inverting the (relaxed) dual update
+                    # u = u_prev + (a x + (1 - a) z_prev - z); frozen elements
+                    # keep the r that actually produced their x.
+                    u_prev = u - (a * x + (1.0 - a) * z_prev - z)
+                    last_r = torch.where(is_optimal[:, None], last_r,
+                                         -ps_p + rho_c * (z_prev - u_prev))
                 else:
-                    at_nu, = kkt.at_mv(nu_s)
+                    for i in range(n_inner):
+                        r = -ps_p + rho_c * (z - u)
+                        x = kkt.x_update(factors, q, r)
+                        z_prev = z
+                        xh = (alpha_t * x + (1.0 - alpha_t) * z if has_alpha
+                              else x)
+                        z_new = torch.clamp(xh + u, lbs_p, ubs_p)
+                        u_new = u + (xh - z_new)
+                        if m_aa:
+                            # A safeguarded Anderson step on v = [z; u]; padded
+                            # coordinates stay 0 (every history column is 0
+                            # there).
+                            v_next, aa = anderson.aa_step(
+                                aa, torch.cat([z, u], dim=-1),
+                                torch.cat([z_new, u_new], dim=-1),
+                                (it + i) % m_aa, hold=is_optimal,
+                                safeguard=float(config.aa_safeguard),
+                                reg=float(config.aa_reg),
+                                max_weight=float(config.aa_max_weight))
+                            z_new, u_new = v_next[:, :n_pad], v_next[:, n_pad:]
+                        z, u = z_new, u_new
+                    last_r = r
+                xs_c, zs_c, us_c, zp_c = (v[:, :n] for v in (x, z, u, z_prev))
 
-            # OSQP-style stopping test on unscaled residuals.
-            s_dual = rho_c * (zs_c - zp_c)
-            primal_error = _inf_norm(D * (xs_c - zs_c))
-            dual_error = _inf_norm(D * s_dual)
-            x_norm = _inf_norm(D * xs_c)
-            z_norm = _inf_norm(D * zs_c)
-            y_norm = _inf_norm(rho_c * D * us_c)
-            # Qx from the KKT identity (Q + rho I) x + A^T nu = r instead of
-            # a (B, n, n) GEMV; it only enters a tolerance normalizer.
-            Qx = last_r[:, :n] - rho_c * xs_c
-            if As is not None:
-                Qx = Qx - at_nu
-            Qx_norm = _inf_norm(Qx / D)
-
-            tolp_norm = torch.clamp(torch.maximum(x_norm, z_norm),
-                                    min=_ZERO_CLAMP)
-            tol_primal = eps_abs + eps_rel * tolp_norm
-            told_norm = torch.clamp(
-                torch.maximum(torch.maximum(y_norm, Qx_norm), p_norm),
-                min=_ZERO_CLAMP)
-            tol_dual = eps_abs + eps_rel * told_norm
-            is_optimal = (primal_error < tol_primal) & (dual_error < tol_dual)
-
-            # OSQP-style primal-infeasibility certificate (Banjac et al.
-            # 2019): over a check interval the dual differences of an
-            # infeasible problem converge to a separating functional,
-            # A^T d_nu + d_lambda -> 0 with negative support.  Unscaled.
-            u_chk_prev, u_chk = u_chk, us_c
-            if config.detect_infeasibility:
-                du = us_c - u_chk_prev
-                dlam_us = rho_c * du / D
+                # Equality duals implied by the current factored solve, and
+                # A^T of them and of their change since the last check.
+                nu_s = dnu = None
                 if As is not None:
-                    cert = (at_dnu + rho_c * du) / D
-                    dual_scale = torch.maximum(_inf_norm(dlam_us),
-                                               _inf_norm(dnu * E))
-                    support = (bs * dnu).sum(dim=-1)
-                    nu_chk = nu_s
-                else:
-                    cert = dlam_us
-                    dual_scale = _inf_norm(dlam_us)
-                    support = torch.zeros((B,), dtype=dtype, device=device)
-                dup = rho_c * torch.clamp(du, min=0.0)
-                dun = rho_c * torch.clamp(du, max=0.0)
-                # An infinite bound has zero support only where the
-                # direction has no mass (0 * inf would be NaN).
-                sup_ub = torch.where(
-                    torch.isfinite(ubs), ubs * dup,
-                    torch.where(dup > 0, math.inf, 0.0).to(dtype))
-                sup_lb = torch.where(
-                    torch.isfinite(lbs), lbs * dun,
-                    torch.where(dun < 0, math.inf, 0.0).to(dtype))
-                support = support + (sup_ub + sup_lb).sum(dim=-1)
-                pinf_el = ((_inf_norm(cert) <= eps_inf * dual_scale)
-                           & (support <= -eps_inf * dual_scale)
-                           & (dual_scale > _ZERO_CLAMP))
-                pinf = pinf | (pinf_el & ~is_optimal)
+                    nu_s = lin._mv(factors.Sinv, lin._mv(factors.W.mT, last_r)
+                                   - bs)
+                    if config.detect_infeasibility:
+                        dnu = nu_s - nu_chk
+                        at_nu, at_dnu = kkt.at_mv(nu_s, dnu)
+                    else:
+                        at_nu, = kkt.at_mv(nu_s)
 
-            it += n_inner
-            if config.adaptive_rho:
-                # Per-element gate: an element's rho moves only when its own
-                # primal/dual ratio is outside the band, inside the window.
-                do_rho_update = ((primal_error > torch.clamp(tol_primal,
-                                                             min=thr))
-                                 | (dual_error > torch.clamp(tol_dual,
-                                                             min=thr)))
-                ratio = rho_ratio()
-                el_outside = (ratio > tol_r) | (ratio < 1.0 / tol_r)
-                window = (it >= adaptive_interval
-                          and it < config.adaptive_rho_max_iter
-                          and (it % adaptive_interval) < cs)
-                rho_pending = (do_rho_update & el_outside if window
-                               else torch.zeros_like(rho_pending))
+                # OSQP-style stopping test on unscaled residuals.
+                s_dual = rho_c * (zs_c - zp_c)
+                primal_error = _inf_norm(D * (xs_c - zs_c))
+                dual_error = _inf_norm(D * s_dual)
+                x_norm = _inf_norm(D * xs_c)
+                z_norm = _inf_norm(D * zs_c)
+                y_norm = _inf_norm(rho_c * D * us_c)
+                # Qx from the KKT identity (Q + rho I) x + A^T nu = r instead
+                # of a (B, n, n) GEMV; it only enters a tolerance normalizer.
+                Qx = last_r[:, :n] - rho_c * xs_c
+                if As is not None:
+                    Qx = Qx - at_nu
+                Qx_norm = _inf_norm(Qx / D)
 
-            if config.verbose:
-                print(f"iter={it}  primal={primal_error.amax().item():.3e}"
-                      f"  dual={dual_error.amax().item():.3e}")
-            done, pending, maxima = flags(
-                (primal_error.amax(), dual_error.amax()) if K else ())
-            if K:
-                trace[n_chk % K, 0] = float(it)
-                trace[n_chk % K, 1:] = maxima
-                n_chk += 1
+                tolp_norm = torch.clamp(torch.maximum(x_norm, z_norm),
+                                        min=_ZERO_CLAMP)
+                tol_primal = eps_abs + eps_rel * tolp_norm
+                told_norm = torch.clamp(
+                    torch.maximum(torch.maximum(y_norm, Qx_norm), p_norm),
+                    min=_ZERO_CLAMP)
+                tol_dual = eps_abs + eps_rel * told_norm
+                is_optimal = ((primal_error < tol_primal)
+                              & (dual_error < tol_dual))
 
-        if not config.adaptive_rho or it >= max_iters or done:
-            break
-        # The inner loop stopped on a pending rho update: rescale the
-        # pending elements' rho and refactorize.
-        rho_new = torch.where(rho_pending, rho * rho_ratio(), rho)
-        rho = torch.clamp(rho_new, config.rho_min, config.rho_max)
-        factors = kkt.factorize(rho)
-        q = kkt.step_constant(factors)
-        if m_aa:
-            # A rho update changes the fixed-point map: reset the updated
-            # elements' history.
-            aa = anderson.aa_reset_where(aa, rho_pending)
-        rho_pending = torch.zeros_like(rho_pending)
-        pending = False
+                # OSQP-style primal-infeasibility certificate (Banjac et al.
+                # 2019): over a check interval the dual differences of an
+                # infeasible problem converge to a separating functional,
+                # A^T d_nu + d_lambda -> 0 with negative support.  Unscaled.
+                u_chk_prev, u_chk = u_chk, us_c
+                if config.detect_infeasibility:
+                    du = us_c - u_chk_prev
+                    dlam_us = rho_c * du / D
+                    if As is not None:
+                        cert = (at_dnu + rho_c * du) / D
+                        dual_scale = torch.maximum(_inf_norm(dlam_us),
+                                                   _inf_norm(dnu * E))
+                        support = (bs * dnu).sum(dim=-1)
+                        nu_chk = nu_s
+                    else:
+                        cert = dlam_us
+                        dual_scale = _inf_norm(dlam_us)
+                        support = torch.zeros((B,), dtype=dtype, device=device)
+                    dup = rho_c * torch.clamp(du, min=0.0)
+                    dun = rho_c * torch.clamp(du, max=0.0)
+                    # An infinite bound has zero support only where the
+                    # direction has no mass (0 * inf would be NaN).
+                    sup_ub = torch.where(
+                        torch.isfinite(ubs), ubs * dup,
+                        torch.where(dup > 0, math.inf, 0.0).to(dtype))
+                    sup_lb = torch.where(
+                        torch.isfinite(lbs), lbs * dun,
+                        torch.where(dun < 0, math.inf, 0.0).to(dtype))
+                    support = support + (sup_ub + sup_lb).sum(dim=-1)
+                    pinf_el = ((_inf_norm(cert) <= eps_inf * dual_scale)
+                               & (support <= -eps_inf * dual_scale)
+                               & (dual_scale > _ZERO_CLAMP))
+                    pinf = pinf | (pinf_el & ~is_optimal)
+
+                it += n_inner
+                if config.adaptive_rho:
+                    # Per-element gate: an element's rho moves only when its
+                    # own primal/dual ratio is outside the band, inside the
+                    # window.
+                    do_rho_update = ((primal_error > torch.clamp(tol_primal,
+                                                                 min=thr))
+                                     | (dual_error > torch.clamp(tol_dual,
+                                                                 min=thr)))
+                    ratio = rho_ratio()
+                    el_outside = (ratio > tol_r) | (ratio < 1.0 / tol_r)
+                    window = (it >= adaptive_interval
+                              and it < config.adaptive_rho_max_iter
+                              and (it % adaptive_interval) < cs)
+                    rho_pending = (do_rho_update & el_outside if window
+                                   else torch.zeros_like(rho_pending))
+
+                if config.verbose:
+                    print(f"iter={it}  primal={primal_error.amax().item():.3e}"
+                          f"  dual={dual_error.amax().item():.3e}")
+                done, pending, maxima = flags(
+                    (primal_error.amax(), dual_error.amax()) if K else ())
+                if K:
+                    trace[n_chk % K, 0] = float(it)
+                    trace[n_chk % K, 1:] = maxima
+                    n_chk += 1
+
+            if not config.adaptive_rho or it >= max_iters or done:
+                break
+            # The inner loop stopped on a pending rho update: rescale the
+            # pending elements' rho and refactorize.
+            rho_new = torch.where(rho_pending, rho * rho_ratio(), rho)
+            rho = torch.clamp(rho_new, config.rho_min, config.rho_max)
+            factors = kkt.factorize(rho)
+            q = kkt.step_constant(factors)
+            if m_aa:
+                # A rho update changes the fixed-point map: reset the updated
+                # elements' history.
+                aa = anderson.aa_reset_where(aa, rho_pending)
+            rho_pending = torch.zeros_like(rho_pending)
+            pending = False
 
     # --- unscale and extract the duals.
     nus = None
@@ -764,8 +780,9 @@ def solve_box_qp_unrolled(Q, p, A=None, b=None, lb=None, ub=None,
     # no gradient.
     rho = rho0.detach()
     Qs_d, D_d, p_norm_d = Qs.detach(), D.detach(), p_norm.detach()
-    factors = lin.factorize_kkt(Qs_d, rho, None if As is None
-                                else As.detach(), mode=_mode(config))
+    with span("lqp.factorize"):
+        factors = lin.factorize_kkt(Qs_d, rho, None if As is None
+                                    else As.detach(), mode=_mode(config))
     rho_c = rho[..., None]
 
     x = z = u = torch.zeros((B, n), dtype=ps.dtype, device=ps.device)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops.kernels.spd_inverse import LEAF
 from lqp_py_tpu_torch.ops.precision import solver_precision
+from lqp_py_tpu_torch.utils.profiling import span
 
 
 def _outer(a, b):
@@ -43,19 +44,21 @@ def reduced_kkt_solve(H, A, r, reg, equilibrate: bool = True):
 
     ``equilibrate=False``: the caller pre-scaled the system to unit
     diagonal (dv = D w with As = A D, rs = D r); the returned ``w`` must be
-    unscaled by the caller, ``dnu`` is invariant."""
-    if A is None:
-        return lin.spd_solve_fast(H, r[..., None],
-                                  equilibrate=equilibrate)[..., 0], None
-    m = A.shape[-2]
-    R = torch.cat([r[..., None], A.mT], dim=-1)
-    X = lin.spd_solve_fast(H, R, equilibrate=equilibrate)  # (B, n, 1+m)
-    x0 = X[..., 0]
-    W = X[..., 1:]                                      # H^-1 A^T
-    S = A @ W + reg * torch.eye(m, dtype=r.dtype, device=r.device)
-    Sinv = lin.spd_inverse(S)                           # m x m: tiny
-    dnu = lin._mv(Sinv, lin._mv(A, x0))
-    return x0 - lin._mv(W, dnu), dnu
+    unscaled by the caller, ``dnu`` is invariant.  One ``lqp.factorize``
+    span: the backward's factorization."""
+    with span("lqp.factorize"):
+        if A is None:
+            return lin.spd_solve_fast(H, r[..., None],
+                                      equilibrate=equilibrate)[..., 0], None
+        m = A.shape[-2]
+        R = torch.cat([r[..., None], A.mT], dim=-1)
+        X = lin.spd_solve_fast(H, R, equilibrate=equilibrate)  # (B, n, 1+m)
+        x0 = X[..., 0]
+        W = X[..., 1:]                                      # H^-1 A^T
+        S = A @ W + reg * torch.eye(m, dtype=r.dtype, device=r.device)
+        Sinv = lin.spd_inverse(S)                           # m x m: tiny
+        dnu = lin._mv(Sinv, lin._mv(A, x0))
+        return x0 - lin._mv(W, dnu), dnu
 
 
 @solver_precision

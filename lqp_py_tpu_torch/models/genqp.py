@@ -51,6 +51,7 @@ from lqp_py_tpu_torch.ops.linalg import _mv
 from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import QPSolution, as_vector, like_layout
+from lqp_py_tpu_torch.utils.profiling import span
 
 _ZERO_CLAMP = 1e-16
 
@@ -128,36 +129,38 @@ def _gen_prepare(Q, A, b, G, h, config, ops=DENSE) -> GenQPPrepared:
     B, n = Q.shape[0], Q.shape[-2]
     k = G.shape[-2]
 
-    # Scaling: Jacobi D from Q's columns, row equilibration of A and G.
-    if config.scale:
-        Q_norm = ops.col_absmax(Q)
-        fill = torch.clamp(Q_norm.mean(dim=-1, keepdim=True), min=1e-6)
-        Q_norm = torch.where(Q_norm <= 0, fill.expand_as(Q_norm), Q_norm)
-        D = torch.sqrt(1.0 / Q_norm)
-        Dc = ops.cols(D)[..., None, :]
-        Qs = D[..., :, None] * Q * Dc
-        Gs, hs, EG = _row_equilibrate(G * Dc, h, ops)
-        if A is not None:
-            As, bs, EA = _row_equilibrate(A * Dc, b, ops)
+    with span("lqp.scale"):
+        # Scaling: Jacobi D from Q's columns, row equilibration of A and G.
+        if config.scale:
+            Q_norm = ops.col_absmax(Q)
+            fill = torch.clamp(Q_norm.mean(dim=-1, keepdim=True), min=1e-6)
+            Q_norm = torch.where(Q_norm <= 0, fill.expand_as(Q_norm), Q_norm)
+            D = torch.sqrt(1.0 / Q_norm)
+            Dc = ops.cols(D)[..., None, :]
+            Qs = D[..., :, None] * Q * Dc
+            Gs, hs, EG = _row_equilibrate(G * Dc, h, ops)
+            if A is not None:
+                As, bs, EA = _row_equilibrate(A * Dc, b, ops)
+            else:
+                As, bs, EA = None, None, None
         else:
-            As, bs, EA = None, None, None
-    else:
-        D = torch.ones((B, n), **kw)
-        EG = torch.ones((B, k), **kw)
-        EA = None if A is None else torch.ones_like(b)
-        Qs, Gs, hs, As, bs = Q, G, h, A, b
+            D = torch.ones((B, n), **kw)
+            EG = torch.ones((B, k), **kw)
+            EA = None if A is None else torch.ones_like(b)
+            Qs, Gs, hs, As, bs = Q, G, h, A, b
 
-    if config.rho is None:
-        q_fro = torch.sqrt(ops.sum((Qs * Qs).sum(dim=(-1, -2))))
-        rho0 = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
-                           config.rho_min, config.rho_max)
-    else:
-        rho0 = torch.full((B,), float(config.rho), **kw)
+        if config.rho is None:
+            q_fro = torch.sqrt(ops.sum((Qs * Qs).sum(dim=(-1, -2))))
+            rho0 = torch.clamp(config.rho_scale * q_fro / math.sqrt(n),
+                               config.rho_min, config.rho_max)
+        else:
+            rho0 = torch.full((B,), float(config.rho), **kw)
 
-    GtG = ops.gram(Gs)
-    # The operand is already shifted: H = Qs + rho0 GtG + sigma I.
-    factors0 = ops.factorize(
-        _x_operator(Qs, GtG, rho0, float(config.sigma), ops), As)
+    with span("lqp.factorize"):
+        GtG = ops.gram(Gs)
+        # The operand is already shifted: H = Qs + rho0 GtG + sigma I.
+        factors0 = ops.factorize(
+            _x_operator(Qs, GtG, rho0, float(config.sigma), ops), As)
     return GenQPPrepared(Qs=Qs, As=As, bs=bs, Gs=Gs, hs=hs, D=D, EG=EG,
                          EA=EA, rho0=rho0, GtG=GtG, factors=factors0,
                          key=_gen_prep_key(config))
@@ -268,111 +271,120 @@ def _solve_gen_scaled(config, prep: GenQPPrepared, ps, p_norm,
         w_new = torch.clamp(sh + u, min=0.0)
         return x, nu, s, w_new, u + (sh - w_new)
 
-    it = 0
-    while it < max_iters and not done:
-        if config.adaptive_rho:
-            window = (it >= adaptive_interval
-                      and it < config.adaptive_rho_max_iter
-                      and (it % adaptive_interval) < cs)
-            if window and pending:
-                rho_new = torch.where(
-                    upd_mask,
-                    torch.clamp(rho * ratio, config.rho_min, config.rho_max),
-                    rho)
-                # A rho change rescales the dual estimate u = lambda / rho.
-                u = u * (rho / rho_new)[..., None]
-                rho = rho_new
-                factors = ops.factorize(
-                    _x_operator(Qs, prep.GtG, rho, sigma, ops), As)
+    with span("lqp.loop"):
+        it = 0
+        while it < max_iters and not done:
+            if config.adaptive_rho:
+                window = (it >= adaptive_interval
+                          and it < config.adaptive_rho_max_iter
+                          and (it % adaptive_interval) < cs)
+                if window and pending:
+                    rho_new = torch.where(
+                        upd_mask,
+                        torch.clamp(rho * ratio, config.rho_min,
+                                    config.rho_max),
+                        rho)
+                    # A rho change rescales the dual estimate u = lambda / rho.
+                    u = u * (rho / rho_new)[..., None]
+                    rho = rho_new
+                    with span("lqp.factorize"):
+                        factors = ops.factorize(
+                            _x_operator(Qs, prep.GtG, rho, sigma, ops), As)
+                    if m_aa:
+                        # A new fixed-point map: reset the updated elements'
+                        # history.
+                        aa = anderson.aa_reset_where(aa, upd_mask)
+
+            n_inner = min(1 if it == 0 else cs, max_iters - it)
+            for i in range(n_inner):
+                w_prev = w
+                x, nu, s, w_new, u_new = plain_step(w, u)
                 if m_aa:
-                    # A new fixed-point map: reset the updated elements'
-                    # history.
-                    aa = anderson.aa_reset_where(aa, upd_mask)
+                    # Safeguarded Anderson step on v = [w; u]; elements that
+                    # were optimal at the last check take the plain step.
+                    v_next, aa = anderson.aa_step(
+                        aa, torch.cat([w, u], dim=-1),
+                        torch.cat([w_new, u_new], dim=-1), (it + i) % m_aa,
+                        hold=is_optimal, safeguard=float(config.aa_safeguard),
+                        reg=float(config.aa_reg),
+                        max_weight=float(config.aa_max_weight))
+                    w_new, u_new = v_next[:, :k], v_next[:, k:]
+                w, u = w_new, u_new
+            it += n_inner
 
-        n_inner = min(1 if it == 0 else cs, max_iters - it)
-        for i in range(n_inner):
-            w_prev = w
-            x, nu, s, w_new, u_new = plain_step(w, u)
-            if m_aa:
-                # Safeguarded Anderson step on v = [w; u]; elements that
-                # were optimal at the last check take the plain step.
-                v_next, aa = anderson.aa_step(
-                    aa, torch.cat([w, u], dim=-1),
-                    torch.cat([w_new, u_new], dim=-1), (it + i) % m_aa,
-                    hold=is_optimal, safeguard=float(config.aa_safeguard),
-                    reg=float(config.aa_reg),
-                    max_weight=float(config.aa_max_weight))
-                w_new, u_new = v_next[:, :k], v_next[:, k:]
-            w, u = w_new, u_new
-        it += n_inner
+            # Residuals in unscaled units: constraint space through EG, the
+            # x-space dual through D.  ``s`` is the last step's h - G x.
+            rho_c = rho[..., None]
+            primal_error = _inf_norm((s - w) / EG)
+            dual_error = _inf_norm(rho_c * ops.mtv(Gs, w - w_prev) * D)
+            tolp_norm = torch.clamp(torch.maximum(_inf_norm(s / EG),
+                                                  _inf_norm(w / EG)),
+                                    min=_ZERO_CLAMP)
+            Qx = ops.mv(Qs, x)
+            told_norm = torch.clamp(torch.maximum(torch.maximum(
+                _inf_norm(ops.mtv(Gs, rho_c * u) * D), _inf_norm(Qx * D)),
+                p_norm), min=_ZERO_CLAMP)
+            tol_primal = eps_abs + eps_rel * tolp_norm
+            tol_dual = eps_abs + eps_rel * told_norm
+            is_optimal = (primal_error < tol_primal) & (dual_error < tol_dual)
 
-        # Residuals in unscaled units: constraint space through EG, the
-        # x-space dual through D.  ``s`` is the last step's h - G x.
-        rho_c = rho[..., None]
-        primal_error = _inf_norm((s - w) / EG)
-        dual_error = _inf_norm(rho_c * ops.mtv(Gs, w - w_prev) * D)
-        tolp_norm = torch.clamp(torch.maximum(_inf_norm(s / EG),
-                                              _inf_norm(w / EG)),
-                                min=_ZERO_CLAMP)
-        Qx = ops.mv(Qs, x)
-        told_norm = torch.clamp(torch.maximum(torch.maximum(
-            _inf_norm(ops.mtv(Gs, rho_c * u) * D), _inf_norm(Qx * D)), p_norm),
-            min=_ZERO_CLAMP)
-        tol_primal = eps_abs + eps_rel * tolp_norm
-        tol_dual = eps_abs + eps_rel * told_norm
-        is_optimal = (primal_error < tol_primal) & (dual_error < tol_dual)
+            # Farkas-style primal-infeasibility certificate (OSQP mechanics,
+            # Banjac et al. 2019): a nonnegative dl with G'dl + A'dnu -> 0 and
+            # h'dl + b'dnu < 0 proves the constraints infeasible.  Unscaled:
+            # dl_us = EG dl_s, (G'dl)_us = (Gs'dl_s) / D.
+            if config.detect_infeasibility:
+                dl = torch.clamp(-rho_c * (u - u_chk), min=0.0)
+                cert = ops.mtv(Gs, dl) / D
+                dual_scale = _inf_norm(dl * EG)
+                support = (hs * dl).sum(dim=-1)
+                if As is not None:
+                    dnu = nu - nu_chk
+                    cert = cert + ops.mtv(As, dnu) / D
+                    dual_scale = torch.maximum(dual_scale, _inf_norm(dnu * EA))
+                    support = support + (bs * dnu).sum(dim=-1)
+                    nu_chk = nu
+                pinf_el = ((_inf_norm(cert) <= eps_inf * dual_scale)
+                           & (support <= -eps_inf * dual_scale)
+                           & (dual_scale > _ZERO_CLAMP))
+                pinf = pinf | (pinf_el & ~is_optimal)
+            u_chk = u
 
-        # Farkas-style primal-infeasibility certificate (OSQP mechanics,
-        # Banjac et al. 2019): a nonnegative dl with G'dl + A'dnu -> 0 and
-        # h'dl + b'dnu < 0 proves the constraints infeasible.  Unscaled:
-        # dl_us = EG dl_s, (G'dl)_us = (Gs'dl_s) / D.
-        if config.detect_infeasibility:
-            dl = torch.clamp(-rho_c * (u - u_chk), min=0.0)
-            cert = ops.mtv(Gs, dl) / D
-            dual_scale = _inf_norm(dl * EG)
-            support = (hs * dl).sum(dim=-1)
-            if As is not None:
-                dnu = nu - nu_chk
-                cert = cert + ops.mtv(As, dnu) / D
-                dual_scale = torch.maximum(dual_scale, _inf_norm(dnu * EA))
-                support = support + (bs * dnu).sum(dim=-1)
-                nu_chk = nu
-            pinf_el = ((_inf_norm(cert) <= eps_inf * dual_scale)
-                       & (support <= -eps_inf * dual_scale)
-                       & (dual_scale > _ZERO_CLAMP))
-            pinf = pinf | (pinf_el & ~is_optimal)
-        u_chk = u
+            busy = (~(is_optimal | pinf)).any()
+            if config.adaptive_rho:
+                # The next body's rho test, from this check's residuals.  Only
+                # elements not yet converged-enough move.
+                do_rho_update = (
+                    (primal_error > torch.clamp(tol_primal, min=thr))
+                    | (dual_error > torch.clamp(tol_dual, min=thr)))
+                num = torch.clamp(primal_error / tolp_norm, min=_ZERO_CLAMP)
+                den = torch.clamp(dual_error / told_norm, min=_ZERO_CLAMP)
+                ratio = torch.sqrt(num / den)
+                outside = (ratio > tol_r) | (ratio < 1.0 / tol_r)
+                # The check's one collective over the batch group and one
+                # device-to-host read.
+                busy, pend, any_out, any_upd = collective.batch_any(
+                    torch.stack([busy, (do_rho_update & outside).any(),
+                                 outside.any(), do_rho_update.any()]))
+                if not config.adaptive_rho_per_element:
+                    # The reference's rescale-all: any element out of band
+                    # (anywhere in the batch) moves every element still above
+                    # its threshold.
+                    outside = any_out.expand_as(outside)
+                    pend = any_out & any_upd
+                upd_mask = do_rho_update & outside
+                flags = torch.stack([busy, pend])
+                with span("lqp.check"):
+                    busy, pending = flags.tolist()
+                done = not busy
+            else:
+                busy = collective.batch_any(busy)
+                with span("lqp.check"):
+                    done = not bool(busy)
 
-        busy = (~(is_optimal | pinf)).any()
-        if config.adaptive_rho:
-            # The next body's rho test, from this check's residuals.  Only
-            # elements not yet converged-enough move.
-            do_rho_update = ((primal_error > torch.clamp(tol_primal, min=thr))
-                             | (dual_error > torch.clamp(tol_dual, min=thr)))
-            num = torch.clamp(primal_error / tolp_norm, min=_ZERO_CLAMP)
-            den = torch.clamp(dual_error / told_norm, min=_ZERO_CLAMP)
-            ratio = torch.sqrt(num / den)
-            outside = (ratio > tol_r) | (ratio < 1.0 / tol_r)
-            # The check's one collective over the batch group and one
-            # device-to-host read.
-            busy, pend, any_out, any_upd = collective.batch_any(
-                torch.stack([busy, (do_rho_update & outside).any(),
-                             outside.any(), do_rho_update.any()]))
-            if not config.adaptive_rho_per_element:
-                # The reference's rescale-all: any element out of band
-                # (anywhere in the batch) moves every element still above
-                # its threshold.
-                outside = any_out.expand_as(outside)
-                pend = any_out & any_upd
-            upd_mask = do_rho_update & outside
-            busy, pending = torch.stack([busy, pend]).tolist()
-            done = not busy
-        else:
-            done = not bool(collective.batch_any(busy))
-
-        if config.verbose:
-            print(f"genqp iter={it} primal={primal_error.amax().item():.3e} "
-                  f"dual={dual_error.amax().item():.3e}")
+            if config.verbose:
+                print(f"genqp iter={it} "
+                      f"primal={primal_error.amax().item():.3e} "
+                      f"dual={dual_error.amax().item():.3e}")
 
     # Unscale.  At the fixed point the x-step stationarity reads
     # Qx + p + A'nu + G'[rho (w - s - u)] = 0 with s -> w, so the

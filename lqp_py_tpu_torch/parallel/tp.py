@@ -73,6 +73,7 @@ from lqp_py_tpu_torch.parallel.tp_ops import (_TP, Columns, column_blocks,
                                               column_chol_solve,
                                               column_cholesky)
 from lqp_py_tpu_torch.types import QPSolution, as_vector
+from lqp_py_tpu_torch.utils.profiling import span
 
 _BOX = ("Q", "p", "A", "b", "lb", "ub")
 _GEN = ("Q", "p", "A", "b", "G", "h")
@@ -301,21 +302,23 @@ class _ColumnKKT:
         self.use_pallas = use_pallas
 
     def factorize(self, rho=None) -> lin.KKTFactors:
-        H = self.H0
-        if rho is not None:
-            # The unpadded diagonal only, as the whole-operator solve.
-            shift = F.pad((rho - self.rho0)[:, None].expand(-1, self.n),
-                          (0, self.n_pad - self.n))
-            H = self.ops.add_diag(H.clone(), shift)
-        if self.mode == "inverse":
-            return self.ops.factorize(H, self.As,
-                                      materialize_p=self.use_pallas)
-        Lc = column_cholesky(H, self.tp)
-        if self.As is None:
-            return lin.KKTFactors(L=Lc)
-        W = column_chol_solve(Lc, self.tp.gather(self.As.mT), self.tp)
-        return lin.KKTFactors(L=Lc, W=W, Sinv=lin.schur_inverse(
-            self.ops.mm(self.As, W)))
+        with span("lqp.factorize"):
+            H = self.H0
+            if rho is not None:
+                # The unpadded diagonal only, as the whole-operator solve.
+                shift = F.pad((rho - self.rho0)[:, None].expand(-1, self.n),
+                              (0, self.n_pad - self.n))
+                H = self.ops.add_diag(H.clone(), shift)
+            if self.mode == "inverse":
+                return self.ops.factorize(H, self.As,
+                                          materialize_p=self.use_pallas)
+            Lc = column_cholesky(H, self.tp)
+            if self.As is None:
+                return lin.KKTFactors(L=Lc)
+            W = column_chol_solve(Lc, self.tp.gather(self.As.mT),
+                                  self.tp)
+            return lin.KKTFactors(L=Lc, W=W, Sinv=lin.schur_inverse(
+                self.ops.mm(self.As, W)))
 
     def step_constant(self, f: lin.KKTFactors):
         """``q`` of the x-update; 0 in Cholesky mode, whose x-update takes

@@ -4,6 +4,15 @@
 - ``trace(logdir)``: a context manager around ``torch.profiler`` that
   writes a Chrome trace of everything inside into ``logdir``, the card's
   kernels included where there is a card.
+- ``span(name)``: the solvers' named host spans.  Under an active
+  ``torch.profiler`` each is a ``record_function`` range, a
+  ``user_annotation`` event in the same trace as the kernels; otherwise a
+  flag read and nothing else.  The solvers enter four: ``lqp.scale``
+  (problem scaling and the box's shifted operand), ``lqp.factorize`` (one
+  KKT factorization or factored backward solve each; they never nest, so
+  their count is the number of factorizations), ``lqp.loop`` (the ADMM
+  iterations, their checks and any adaptive-rho refactorization) and
+  ``lqp.check`` (a residual check's device-to-host read alone).
 - ``force(tree)``: wait for the devices of the tensors in a tree.
 - ``clock(fn, device)``: one call's wall time, from an idle device to the
   end of its last kernel (``force``); the drivers' timed window.
@@ -27,6 +36,18 @@ from typing import Callable, Dict
 
 import torch
 from torch import nn
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range on the profiler's clock: ``record_function(name)``
+    while a ``torch.profiler`` session is active, else a shared null
+    context (one flag read, no torch op).  Adds no synchronization."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
