@@ -3,15 +3,21 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
-toolkit.  It builds the three kernels (the SWEEP leaf, the early-exit GEMV
-and the block-sweep inverse) from ``lqp_py_tpu_torch/csrc`` into ``build/``
-and checks each against its plain PyTorch version.  Then it serves the reference's Experiment-1 shape
+toolkit.  It builds the four kernels (the SWEEP leaf, the recursion's
+mirror, the early-exit GEMV and the block-sweep inverse) from
+``lqp_py_tpu_torch/csrc`` into ``build/`` and checks each against its plain
+PyTorch version.  Then it serves the reference's Experiment-1 shape
 (B=128 box QPs of n=1000, float32, eps_abs = eps_rel = 1e-5): three direct
 requests, one of them checked against a float64 solve, then a prepared
 problem answering four requests with a drifting cost vector and warm
 starts (phases 1-6).  Phase 3 also holds the leaf on a leading-block view
-(read in place) bitwise to the leaf on its copy, fails if the leaf spills
-registers, and times it on the device alone and at the host's pace.
+(read in place) bitwise to the leaf on its copy, and the leaf writing in
+place over a diagonal block of a (B, 1024, 1024) stack bitwise to its new
+output and near the plain leaf in place; fails if the leaf spills
+registers, and times it on the device alone and at the host's pace.  It
+then holds the mirror kernel bitwise to its plain version on the blocks an
+n=1024 inverse mirrors, at the benchmark's batch of 512, and times the
+seven mirrors of one inverse; phases 4-6 and 10 count its launches.
 Phase 7 times the early-exit GEMV against its plain version at 0/50/90% of
 the batch converged, on the device alone and at the host's pace, and in
 turns with ``P @ r``, and sets the 90%/0% time ratio beside the active
@@ -129,6 +135,7 @@ N_CONIC = 300       # phase 20's n: the conic system fits its 1 GiB budget
 # (1.8e-4 there: the two rules weigh the weakly active rows differently).
 CONIC_F64_GATE, CONIC_KKT_GATE = 1e-4, 2e-3
 B_BIG = 65536       # the GEMV's batch above the grid's y limit (phase 7)
+B_BENCH = 512       # qpbench's box cells' batch: the mirror's timing (phase 3)
 AA_WINDOW = 10      # experiments/experiment_aa.py's first window (phase 14)
 # Phase 12's gate on max|x_unrolled - x_fixed_point|: five times the
 # 4.542e-05 that one "NVIDIA H100 80GB HBM3, 700.00 W" showed
@@ -269,6 +276,7 @@ def main():
     from lqp_py_tpu_torch.ops.kernels import _build
     from lqp_py_tpu_torch.ops.kernels import admm_step as gk
     from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
+    from lqp_py_tpu_torch.ops.kernels import mirror as mk
     from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
     from lqp_py_tpu_torch.ops.operator import DENSE
     from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
@@ -387,27 +395,102 @@ def main():
           + ", ".join(f"{k:.4f}/{c:.4f}" for k, c in turns3)
           + f"]; bound {leaf_bound[0]:.4f} ms by {leaf_bound[1]}")
 
+    # The leaf writing in place over an inner diagonal block of a
+    # (B, N_PAD, N_PAD) stack, as the recursion runs it: bitwise the
+    # kernel's new output (Hk), nothing outside the block written, and
+    # within phase 3's tolerance of the plain leaf in place.
+    o3 = N_PAD // 2 - LEAF
+    blk = (slice(None), slice(o3, o3 + LEAF), slice(o3, o3 + LEAF))
+    stack = torch.randn((B, N_PAD, N_PAD), generator=g, device=dev)
+    stack[blk] = H
+    want3, plain3 = stack.clone(), stack.clone()
+    want3[blk] = Hk
+    sk.sweep_spd_inverse_ref(plain3[blk], out=plain3[blk])
+    sk.sweep_spd_inverse(stack[blk], out=stack[blk])
+    _check(torch.equal(stack, want3), "the leaf kernel in place over a "
+           "diagonal block differs from its new output, or wrote outside it")
+    rel_in = ((stack[blk] - plain3[blk]).abs().max()
+              / plain3[blk].abs().max()).item()
+    _check(rel_in <= 1e-4, f"leaf in place vs plain leaf in place: relative "
+           f"{rel_in:.3e}")
+    del stack, want3, plain3
+
+    # The recursion's mirror on the blocks an N_PAD inverse mirrors (one
+    # per inner node: the top-right block transposed into the bottom-left),
+    # at the benchmark's batch, against its plain version bitwise.  The
+    # plain version is PyTorch's own transposed copy, so it is also the
+    # library yardstick.  Turns: plain, kernel, kernel, plain.
+    nodes = []
+
+    def inner(o, n):
+        if n > LEAF:
+            h = (n // LEAF // 2) * LEAF
+            nodes.append((o, n, h))
+            inner(o, h)
+            inner(o + h, n - h)
+
+    inner(0, N_PAD)
+
+    def mirrors(fn, W):
+        for o, n, h in nodes:
+            fn(W[:, o:o + h, o + h:o + n], W[:, o + h:o + n, o:o + h])
+
+    Wk = torch.randn((B_BENCH, N_PAD, N_PAD), generator=g, device=dev)
+    Wp = Wk.clone()
+    m0 = mk.LAUNCHES
+    mirrors(mk.mirror_block, Wk)
+    mirrors(mk.mirror_block_ref, Wp)
+    _check(mk.LAUNCHES - m0 == len(nodes), f"{mk.LAUNCHES - m0} mirror "
+           f"launches for {len(nodes)} blocks")
+    mirror_err = (Wk - Wp).abs().max().item()
+    _check(torch.equal(Wk, Wp), f"the mirror kernel differs from its plain "
+           f"version (max {mirror_err:.3e}) or wrote outside its blocks")
+    t_mp1 = _event_ms(lambda: mirrors(mk.mirror_block_ref, Wp), 5,
+                      queued=True, host_ms=0.3)
+    t_mk1 = _event_ms(lambda: mirrors(mk.mirror_block, Wk), 20, queued=True,
+                      host_ms=0.3)
+    t_mk2 = _event_ms(lambda: mirrors(mk.mirror_block, Wk), 20, queued=True,
+                      host_ms=0.3)
+    t_mp2 = _event_ms(lambda: mirrors(mk.mirror_block_ref, Wp), 5,
+                      queued=True, host_ms=0.3)
+    del Wk, Wp
+    mirror_ms, mirror_plain_ms = (t_mk1 + t_mk2) / 2, (t_mp1 + t_mp2) / 2
+    # Each element of a block read once and written once.
+    mirror_bytes = 2 * 4 * B_BENCH * sum(h * (n - h) for _, n, h in nodes)
+    mirror_bound = _bound(0, mirror_bytes)
+    print(f"phase 3 mirror ({B_BENCH},{N_PAD},{N_PAD}) f32, the "
+          f"{len(nodes)} blocks of one inverse ("
+          + ", ".join(f"{h}x{n - h}" for _, n, h in nodes) + "): bitwise "
+          f"the plain version; leaf in place over a diagonal block bitwise "
+          f"its new output, vs the plain leaf in place rel {rel_in:.3e} "
+          f"(<= 1e-4); device time kernel {mirror_ms:.4f} ms ({t_mk1:.4f}, "
+          f"{t_mk2:.4f}), plain (out.copy_(src.mT)) {mirror_plain_ms:.4f} ms "
+          f"({t_mp1:.4f}, {t_mp2:.4f}); bound {mirror_bound[0]:.4f} ms by "
+          f"{mirror_bound[1]} ({mirror_bytes / mirror_ms / 1e6:.0f} GB/s)")
+
     # 4. One factorization at the serving shape (bench.py's probe).
     data0 = create_qp_data(N, B, seed=0, dtype=torch.float32, device=dev)
     eyeN = torch.eye(N, device=dev)
     Hq = data0.Q + eyeN
     with highest_matmul_precision():
-        before = sk.LAUNCHES
+        before, m0 = sk.LAUNCHES, mk.LAUNCHES
         Hi = lin.spd_inverse_fast(Hq)
-        leaf_calls = sk.LAUNCHES - before
+        leaf_calls, mirror_calls = sk.LAUNCHES - before, mk.LAUNCHES - m0
         res = (Hq @ Hi - eyeN).abs().max().item()
         fact_ms = _event_ms(lambda: lin.spd_inverse_fast(Hq), 3)
     del Hi
     _check(res < 1e-4, f"factorization residual {res:.3e}")
     _check(leaf_calls == N_PAD // LEAF,
            f"{leaf_calls} leaf launches, expected {N_PAD // LEAF}")
+    _check(mirror_calls == len(nodes),
+           f"{mirror_calls} mirror launches, expected {len(nodes)}")
     print(f"phase 4 spd_inverse_fast(Q + I) B={B} n={N} f32: |H Hinv - I|max "
-          f"{res:.3e} (< 1e-4), {leaf_calls} leaf launches, "
-          f"{fact_ms:.3f} ms")
+          f"{res:.3e} (< 1e-4), {leaf_calls} leaf launches, {mirror_calls} "
+          f"mirror launches, {fact_ms:.3f} ms")
 
     # 5-6: the serving path; only its kernel launches are counted.
     cfg = BoxQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False)
-    sk.LAUNCHES = 0
+    sk.LAUNCHES = mk.LAUNCHES = 0
 
     # 5. Direct requests.
     direct0 = None
@@ -465,11 +548,16 @@ def main():
                    f"prepared vs direct solve differ by {dprep:.3e}")
         lines.append(f"{sol.iterations} it {ms:.2f} ms")
         prev = sol
-    launches = sk.LAUNCHES
+    launches, mirrors6 = sk.LAUNCHES, mk.LAUNCHES
     print(f"phase 6 serving: prepare {prep_ms:.2f} ms; requests "
           f"[{'; '.join(lines)}]; first request vs direct solve "
-          f"{dprep:.3e} (<= 1e-6)")
+          f"{dprep:.3e} (<= 1e-6); {launches} leaf and {mirrors6} mirror "
+          f"launches")
     _check(launches > 0, "the serving path launched no sweep kernel")
+    # Every factorization is one N_PAD inverse: its leaves and its mirrors.
+    _check(mirrors6 * leaf_calls == launches * len(nodes),
+           f"serving: {mirrors6} mirrors for {launches} leaves, expected "
+           f"{len(nodes)} per {leaf_calls}")
     _check(gk.LAUNCHES == 0, "the lock-step path launched the early-exit "
            "GEMV")
     del data, prep, prev, sol
@@ -852,6 +940,7 @@ def main():
                           dtype=torch.float32, device=dev)
     cfg10 = BoxQPConfig(eps_abs=TOL, eps_rel=TOL, symmetrize=False)
     leaves10 = N_PAD // LEAF
+    bwd10 = {}                  # the last backward's mirror launches
 
     def fwd_bwd(cfg):
         torch.cuda.synchronize()
@@ -859,18 +948,30 @@ def main():
         x = boxqp(Q10, p10, A10, b10, lb10, ub10, config=cfg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        s0 = sk.LAUNCHES
+        s0, m0 = sk.LAUNCHES, mk.LAUNCHES
         gQ, gp = torch.autograd.grad((w10 * x).sum(), (Q10, p10))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        bwd10["mirrors"] = mk.LAUNCHES - m0
         return (x.detach(), gQ, gp, sk.LAUNCHES - s0,
                 ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t2 - t0) * 1e3))
 
-    sk.LAUNCHES = 0
+    sk.LAUNCHES = mk.LAUNCHES = 0
     x10, gQ10, gp10, bwd_leaves, _ = fwd_bwd(cfg10)
-    launches10 = sk.LAUNCHES
+    launches10, mirrors10 = sk.LAUNCHES, mk.LAUNCHES
+    bwd_mirrors10 = bwd10["mirrors"]
     _check(bwd_leaves == leaves10, f"{bwd_leaves} leaf launches in the "
            f"fixed-point backward, expected {leaves10}")
+    # The backward's solve-only form mirrors every inner node but its top
+    # one, unless it inverts the whole (N_PAD <= 2 LEAF); the forward's
+    # factorizations are whole inverses.
+    want10 = len(nodes) - (N_PAD > 2 * LEAF)
+    _check(bwd_mirrors10 == want10, f"{bwd_mirrors10} mirror launches in "
+           f"the fixed-point backward, expected {want10}")
+    _check((mirrors10 - bwd_mirrors10) * leaves10
+           == (launches10 - bwd_leaves) * len(nodes),
+           f"forward: {mirrors10 - bwd_mirrors10} mirrors for "
+           f"{launches10 - bwd_leaves} leaves")
     _check(all(bool(torch.isfinite(t).all()) for t in (x10, gQ10, gp10)),
            "x or a gradient not finite")
     _check(tuple(gQ10.shape) == (B, N, N) and tuple(gp10.shape) == (B, N),
@@ -912,7 +1013,9 @@ def main():
     print(f"phase 10 flagship forward+backward (B={B}, n={N}, f32, tol "
           f"{TOL:g}, fixed_point, d/dQ and d/dp of sum(w x)): {n_conv}/{B} "
           f"converged in {sol10.iterations} iterations; {launches10} leaf "
-          f"launches, {bwd_leaves} in the backward (= {leaves10}); x and "
+          f"launches, {bwd_leaves} in the backward (= {leaves10}); "
+          f"{mirrors10} mirror launches, {bwd_mirrors10} in the backward; "
+          f"x and "
           f"both gradients finite; max|dp| {gp10.abs().max().item():.4e}; "
           f"layer vs direct backward: relative max|ddp| {wire_dp:.3e}, "
           f"max|ddQ| {wire_dQ:.3e} (<= 1e-5); f32 vs f64 backward on one "
@@ -1338,8 +1441,11 @@ def main():
     off16 = (Hs16 - torch.diag_embed(ds16)).abs().max().item()
     with highest_matmul_precision():
         Hk16 = lin.spd_inverse_fast(H16)
+        m0 = mk.LAUNCHES
         Hp16 = lin._schur_inverse(lin._pad_to_leaf(Hs16),
-                                  leaf=sk.sweep_spd_inverse_ref)[:, :N, :N]
+                                  leaf=sk.sweep_spd_inverse_ref,
+                                  mirror=mk.mirror_block_ref)[:, :N, :N]
+        _check(mk.LAUNCHES == m0, "the plain recursion launched the mirror")
         Hp16 = Hp16 * deq[..., :, None] * deq[..., None, :]
     inv16 = torch.cholesky_inverse(torch.linalg.cholesky(H16.double()))
     err16_k = (Hk16.double() - inv16).abs().max().item()
@@ -1933,7 +2039,16 @@ def main():
         "err_vs_f64": err9_k, "plain_err_vs_f64": err9_r,
         "bound_ms": block_bound[0], "bound_by": block_bound[1],
         "library_ms": ms9["cholesky_inverse"], "regs": attrs9["regs"],
-        "local_bytes": attrs9["local_bytes"]}]}))
+        "local_bytes": attrs9["local_bytes"]}, {
+        "name": "mirror_block", "route": "cuda",
+        "source": "lqp_py_tpu_torch/csrc/mirror_block.cu",
+        "replaces": "lqp_py_tpu/ops/linalg.py:174",
+        "launches": mirrors6, "launches_factorization": mirror_calls,
+        "launches_fwd_bwd": mirrors10, "launches_bwd": bwd_mirrors10,
+        "max_abs_err": mirror_err, "batch": B_BENCH, "blocks": len(nodes),
+        "ms": mirror_ms, "plain_ms": mirror_plain_ms,
+        "bound_ms": mirror_bound[0], "bound_by": mirror_bound[1],
+        "library_ms": mirror_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -2670,9 +2785,9 @@ def _parallel_worker(spec_path, world):
     if dev.type == "cpu":
         # The CPU rehearsal (tests/test_torch_chip_smoke.py): the kernels'
         # plain versions stand in for them and count as launches.
-        def counted(H):
+        def counted(H, out=None):
             sk.LAUNCHES += 1
-            return sk.sweep_spd_inverse_ref(H)
+            return sk.sweep_spd_inverse_ref(H, out)
 
         def counted_gemv(*a):
             gk.LAUNCHES += 1

@@ -101,8 +101,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     fn = lib.sweep_spd_inverse_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     for name in ("sweep_spd_inverse_attributes",
                  "gemv_early_exit_attributes",
@@ -117,6 +117,11 @@ def load_library() -> ctypes.CDLL:
     fn = lib.gemv_early_exit_rect_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.mirror_block_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.block_spd_inverse_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,

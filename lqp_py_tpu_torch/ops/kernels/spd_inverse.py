@@ -30,8 +30,10 @@ LEAF = 128
 LAUNCHES = 0
 
 
-def sweep_spd_inverse_ref(H: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch SWEEP inverse of a (B, m, m) stack of SPD matrices."""
+def sweep_spd_inverse_ref(H: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch SWEEP inverse of a (B, m, m) stack of SPD matrices,
+    copied into ``out`` where one is given (which may be H)."""
     A = H.clone()
     for k in range(A.shape[-1]):
         row = A[:, k, :].clone()                 # pivot row == column
@@ -41,20 +43,29 @@ def sweep_spd_inverse_ref(H: torch.Tensor) -> torch.Tensor:
         A[:, k, :] = v
         A[:, :, k] = v
         A[:, k, k] = -dinv
-    return -A
+    return -A if out is None else torch.neg(A, out=out)
 
 
-def sweep_spd_inverse(H: torch.Tensor) -> torch.Tensor:
-    """H^-1 for a (B, 128, 128) stack of SPD matrices.
+def _check_view(name: str, X: torch.Tensor) -> None:
+    if X.stride(2) != 1 or X.stride(1) < LEAF:
+        raise ValueError(
+            f"sweep_spd_inverse kernel: {name} needs rows of unit stride at "
+            f"least {LEAF} apart, got strides {X.stride()}")
+
+
+def sweep_spd_inverse(H: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """H^-1 for a (B, 128, 128) stack of SPD matrices, written into ``out``
+    where one is given, else into a new contiguous stack; returns it.
 
     A CPU tensor takes the plain version.  A CUDA tensor must be float32 of
     shape (B, 128, 128) with unit column stride and a row stride of at
-    least 128 (a leading-block view of a larger stack is read in place);
-    it always goes to the kernel, and anything else raises.  The result is
-    contiguous."""
+    least 128 (a diagonal-block view of a larger stack is read in place);
+    ``out`` is such a view too, of H's shape, and may be H itself.  It
+    always goes to the kernel, and anything else raises."""
     global LAUNCHES
     if H.device.type == "cpu":
-        return sweep_spd_inverse_ref(H)
+        return sweep_spd_inverse_ref(H, out)
     if H.device.type != "cuda":
         raise ValueError(f"sweep_spd_inverse: unsupported device {H.device}")
     if (H.dtype != torch.float32 or H.ndim != 3
@@ -62,15 +73,20 @@ def sweep_spd_inverse(H: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"sweep_spd_inverse kernel takes float32 (B, {LEAF}, {LEAF}), "
             f"got {H.dtype} {tuple(H.shape)}")
-    if H.stride(2) != 1 or H.stride(1) < LEAF:
+    _check_view("H", H)
+    if out is None:
+        out = torch.empty((H.shape[0], LEAF, LEAF), dtype=H.dtype,
+                          device=H.device)
+    elif (out.dtype != H.dtype or out.shape != H.shape
+          or out.device != H.device):
         raise ValueError(
-            f"sweep_spd_inverse kernel reads rows of unit stride at least "
-            f"{LEAF} apart, got strides {H.stride()}")
-    out = torch.empty((H.shape[0], LEAF, LEAF), dtype=H.dtype,
-                      device=H.device)
+            f"sweep_spd_inverse: out must be {H.dtype} {tuple(H.shape)} on "
+            f"{H.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    _check_view("out", out)
     dev = H.device.index
     args = (H.data_ptr(), H.stride(0), H.stride(1), out.data_ptr(),
-            H.shape[0], LEAF, torch.cuda.current_stream(dev).cuda_stream)
+            out.stride(0), out.stride(1), H.shape[0], LEAF,
+            torch.cuda.current_stream(dev).cuda_stream)
     lib = _build.load_library()               # loaded once, then cached
     if dev == torch.cuda.current_device():
         rc = lib.sweep_spd_inverse_f32(*args)
@@ -82,4 +98,3 @@ def sweep_spd_inverse(H: torch.Tensor) -> torch.Tensor:
                            f"CUDA error {rc}")
     LAUNCHES += 1
     return out
-

@@ -30,8 +30,12 @@ GEMMs whose 128x128 diagonal leaves go to ``sweep_spd_inverse`` — the CUDA
 kernel for a CUDA tensor, its plain version for a CPU tensor, so the CPU
 tests run the algorithm the card runs.  ``spd_solve_fast`` (the backward
 pass's solve) dispatches the same way, with the recursion in solve-only
-form.  The recursion GEMMs are ``torch.matmul``; the solver entry points
-run them with TF32 off (ops/precision.py).
+form.  The recursion assembles the inverse in one (B, n, n) buffer, each
+block written in its final place by a batched GEMM (``bmm`` / ``baddbmm``
+on strided views, the negations and sums in their ``alpha`` and ``beta``)
+or by a leaf; only the mirror of each off-diagonal block is a copy
+(``mirror_block``, a CUDA kernel on the card).  The solver entry points run
+the GEMMs with TF32 off (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from lqp_py_tpu_torch.ops.kernels.mirror import mirror_block
 from lqp_py_tpu_torch.ops.kernels.spd_inverse import LEAF, sweep_spd_inverse
 from lqp_py_tpu_torch.ops.precision import highest_matmul_precision
 
@@ -91,11 +96,13 @@ def spd_inverse(H):
     return chol_inverse(cholesky(H))
 
 
-def _sweep_leaf(H):
-    # The recursion's leading-block views go to the leaf as they are (the
-    # kernel reads through their row stride); only an operand without unit
-    # column stride, such as a transpose from a caller, is copied.
-    return sweep_spd_inverse(H if H.stride(-1) == 1 else H.contiguous())
+def _sweep_leaf(H, out=None):
+    # The recursion's diagonal-block views go to the leaf as they are (the
+    # kernel reads and writes through their row strides); only an operand
+    # without unit column stride, such as a transpose from a caller, is
+    # copied.
+    return sweep_spd_inverse(H if H.stride(-1) == 1 else H.contiguous(),
+                             out=out)
 
 
 def _gj_inverse_small(H):
@@ -116,28 +123,66 @@ def _gj_inverse_small(H):
     return -X.movedim(-1, 0)
 
 
-def _schur_inverse(H, leaf=_sweep_leaf):
+def _refuse_autograd(*operands):
+    """The in-place GEMMs record no autograd graph, so an operand that
+    autograd would differentiate raises (the solvers' autograd Functions
+    run their factorizations without one)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise RuntimeError("the Schur recursion assembles in place and is "
+                           "not differentiable: call it under no_grad")
+
+
+def _halves_into(H, W, leaf, mirror, h):
+    """The half of a node split at h that both forms of the recursion
+    share, written into W (which may be H): ``Ai`` in its top-left,
+    ``T^T = B^T Ai`` in its bottom-left and ``Si = (C - B^T Ai B)^-1`` in
+    its bottom-right.  Only H's blocks on and above the diagonal at the
+    splits are read; where W is not H, C is copied into W once before its
+    GEMM updates it.  Returns the views (B, Ai, T^T, Si)."""
+    Bm, C = H[:, :h, h:], H[:, h:, h:]
+    Ai, Tt, Si = W[:, :h, :h], W[:, h:, :h], W[:, h:, h:]
+    _invert_into(H[:, :h, :h], Ai, leaf, mirror)
+    torch.bmm(Bm.mT, Ai, out=Tt)                     # T^T = B^T Ai
+    if Si.data_ptr() != C.data_ptr():
+        Si.copy_(C)
+    Si.baddbmm_(Tt, Bm, alpha=-1)                    # S = C - B^T Ai B
+    _invert_into(Si, Si, leaf, mirror)
+    return Bm, Ai, Tt, Si
+
+
+def _invert_into(H, out, leaf, mirror):
+    """``out <- H^-1`` for (B, n, n) views with n a multiple of LEAF;
+    ``out`` may be H.  Splits at a multiple of LEAF; after the shared half
+    (``_halves_into``) ``-U = -T Si`` goes to the top-right, ``Ai + U T^T``
+    onto ``Ai``, and ``mirror`` writes ``(-U)^T`` over ``T^T``."""
+    n = H.shape[-1]
+    if n <= LEAF:
+        leaf(H, out=out)
+        return
+    h = (n // LEAF // 2) * LEAF
+    _, Ai, Tt, Si = _halves_into(H, out, leaf, mirror, h)
+    TR = out[:, :h, h:]
+    TR.baddbmm_(Tt.mT, Si, beta=0, alpha=-1)         # -U = -T Si
+    Ai.baddbmm_(TR, Tt, alpha=-1)                    # Ai + U T^T
+    mirror(TR, Tt)                                   # (-U)^T
+
+
+def _schur_inverse(H, leaf=_sweep_leaf, out=None, mirror=None):
     """Recursive SPD inverse; H is (B, n, n) with n a multiple of LEAF.
 
     Splits at a multiple of LEAF, inverts the leading block and its Schur
-    complement recursively, and assembles the inverse with GEMMs; ``leaf``
-    inverts the 128x128 diagonal blocks."""
-    n = H.shape[-1]
-    if n <= LEAF:
-        return leaf(H)
-    h = (n // LEAF // 2) * LEAF
-    A = H[..., :h, :h]
-    Bm = H[..., :h, h:]
-    C = H[..., h:, h:]
-    Ai = _schur_inverse(A, leaf)
-    T = Ai @ Bm                                   # Ai B        (h, n-h)
-    S = C - Bm.mT @ T                             # C - B^T Ai B
-    Si = _schur_inverse(S, leaf)
-    U = T @ Si                                    # Ai B Si     (h, n-h)
-    TL = Ai + U @ T.mT                            # Ai + U (Ai B)^T
-    top = torch.cat([TL, -U], dim=-1)
-    bot = torch.cat([-U.mT, Si], dim=-1)
-    return torch.cat([top, bot], dim=-2)
+    complement recursively, and assembles the inverse with GEMMs in one
+    buffer (``_invert_into``); ``leaf(X, out=Y)`` inverts the 128x128
+    diagonal blocks and ``mirror(src, out)`` (default ``mirror_block``)
+    writes each off-diagonal block's transpose: the plain versions of both
+    give the plain recursion.  The result goes to ``out`` where one is
+    given (H itself to overwrite it), else to a new buffer; H is not
+    written otherwise."""
+    _refuse_autograd(H)
+    if out is None:
+        out = H.new_empty(H.shape)
+    _invert_into(H, out, leaf, mirror or mirror_block)
+    return out
 
 
 def _equilibrate(H):
@@ -149,14 +194,21 @@ def _equilibrate(H):
 def _pad_to_leaf(H):
     """(B, n, n) -> (B, n_pad, n_pad) with n_pad the next multiple of LEAF
     and an identity block in the pad (exact: the inverse of
-    blockdiag(H, I) is blockdiag(H^-1, I))."""
+    blockdiag(H, I) is blockdiag(H^-1, I)); H itself where n is one.
+
+    Only what the recursion reads is written, each element once: every
+    LEAF-row band from its diagonal block rightwards.  The blocks below
+    the diagonal blocks are left unwritten, for the recursion to fill."""
     n = H.shape[-1]
-    pad = -(-n // LEAF) * LEAF - n
-    if not pad:
+    n_pad = -(-n // LEAF) * LEAF
+    if n_pad == n:
         return H
-    Hp = H.new_zeros((H.shape[0], n + pad, n + pad))
-    Hp[:, :n, :n] = H
-    Hp[:, n:, n:] = torch.eye(pad, dtype=H.dtype, device=H.device)
+    Hp = H.new_empty((H.shape[0], n_pad, n_pad))
+    for i in range(0, n, LEAF):
+        Hp[:, i:min(i + LEAF, n), i:n] = H[:, i:i + LEAF, i:]
+    Hp[:, :n, n:].zero_()
+    Hp[:, n:, n_pad - LEAF:n].zero_()          # the pad rows' band
+    Hp[:, n:, n:] = torch.eye(n_pad - n, dtype=H.dtype, device=H.device)
     return Hp
 
 
@@ -179,32 +231,38 @@ def spd_inverse_fast(H, equilibrate: bool = True):
     if n <= _GJ_MAX:
         Hi = _gj_inverse_small(Hs)
     else:
-        Hi = _schur_inverse(_pad_to_leaf(Hs))[:, :n, :n]
+        # A copy made here (padded or equilibrated) is inverted in place.
+        Hp = _pad_to_leaf(Hs)
+        Hi = _schur_inverse(Hp, out=None if Hp is H else Hp)[:, :n, :n]
     if d is None:
         return Hi
     return Hi * d[..., :, None] * d[..., None, :]
 
 
-def _schur_solve_rec(H, R, leaf=_sweep_leaf):
+def _schur_solve_rec(H, R, leaf=_sweep_leaf, work=None, mirror=None):
     """``H^-1 R`` without materializing the full inverse: the two half-size
-    diagonal blocks are inverted (``_schur_inverse``, sweep leaves) but the
+    diagonal blocks are inverted (``_invert_into``, sweep leaves) but the
     cross-block pieces are only applied to ``R``.
 
-    H: (B, n, n) SPD with n a multiple of LEAF; R: (B, n, k)."""
+    H: (B, n, n) SPD with n a multiple of LEAF; R: (B, n, k).  The blocks
+    go to ``work`` (B, n, n), which may be H to overwrite it, else to a new
+    buffer; X1 and X2 are written into one new (B, n, k) result.
+    ``leaf`` and ``mirror`` as in ``_schur_inverse``."""
+    _refuse_autograd(H, R)
+    mirror = mirror or mirror_block
     n = H.shape[-1]
+    W = H.new_empty(H.shape) if work is None else work
+    X = R.new_empty(R.shape)
     if n <= 2 * LEAF:
-        return _schur_inverse(H, leaf) @ R
+        _invert_into(H, W, leaf, mirror)
+        return torch.bmm(W, R, out=X)
     h = (n // LEAF // 2) * LEAF
-    A = H[..., :h, :h]
-    Bm = H[..., :h, h:]
-    C = H[..., h:, h:]
-    Ai = _schur_inverse(A, leaf)
-    T = Ai @ Bm                                   # Ai B      (h, n-h)
-    Si = _schur_inverse(C - Bm.mT @ T, leaf)      # (C - B^T Ai B)^-1
-    Y1 = Ai @ R[..., :h, :]
-    X2 = Si @ (R[..., h:, :] - Bm.mT @ Y1)
-    X1 = Y1 - T @ X2
-    return torch.cat([X1, X2], dim=-2)
+    Bm, Ai, Tt, Si = _halves_into(H, W, leaf, mirror, h)
+    X1, X2 = X[:, :h], X[:, h:]
+    torch.bmm(Ai, R[:, :h], out=X1)                  # Y1 = Ai R1
+    torch.bmm(Si, torch.baddbmm(R[:, h:], Bm.mT, X1, alpha=-1), out=X2)
+    X1.baddbmm_(Tt.mT, X2, alpha=-1)                 # Y1 - T X2
+    return X
 
 
 def spd_solve_fast(H, R, equilibrate: bool = True,
@@ -235,7 +293,7 @@ def spd_solve_fast(H, R, equilibrate: bool = True,
     else:
         Hp = _pad_to_leaf(Hs)
         Rp = F.pad(Rs, (0, 0, 0, Hp.shape[-1] - n))
-        X = _schur_solve_rec(Hp, Rp)[:, :n, :]
+        X = _schur_solve_rec(Hp, Rp, work=None if Hp is H else Hp)[:, :n, :]
     if d is None:
         return X
     return X * d[..., :, None]

@@ -13,6 +13,7 @@ from lqp_py_tpu_torch.ops import linalg as tlin
 from lqp_py_tpu_torch.ops.kernels import _build
 from lqp_py_tpu_torch.ops.kernels import admm_step as gk
 from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
+from lqp_py_tpu_torch.ops.kernels import mirror as mk
 from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
 
 REPO = Path(__file__).resolve().parents[1]
@@ -30,9 +31,9 @@ class _HostEvent:
 
 
 def _counting(module, plain):
-    def wrapper(*args):
+    def wrapper(*args, **kwargs):
         module.LAUNCHES += 1
-        return plain(*args)
+        return plain(*args, **kwargs)
     return wrapper
 
 
@@ -61,11 +62,14 @@ def load_stubbed(monkeypatch):
     monkeypatch.setattr(_build, "library_path", lambda: Path("stub.so"))
     monkeypatch.setattr(_build, "kernel_attributes",
                         lambda kernel: {"regs": 1, "local_bytes": 0})
-    for mod in (sk, gk, bk):
+    for mod in (sk, gk, bk, mk):
         monkeypatch.setattr(mod, "LAUNCHES", mod.LAUNCHES)
     leaf = _counting(sk, sk.sweep_spd_inverse_ref)
     monkeypatch.setattr(sk, "sweep_spd_inverse", leaf)
     monkeypatch.setattr(tlin, "sweep_spd_inverse", leaf)
+    mirror = _counting(mk, mk.mirror_block_ref)
+    monkeypatch.setattr(mk, "mirror_block", mirror)
+    monkeypatch.setattr(tlin, "mirror_block", mirror)
     monkeypatch.setattr(gk, "gemv_early_exit",
                         _counting(gk, gk.gemv_early_exit_ref))
     monkeypatch.setattr(bk, "block_spd_inverse",

@@ -139,7 +139,7 @@ def test_float32_box_ip_recursion_agrees_with_jax_cholesky(monkeypatch):
     leaves = []
     leaf = tlin.sweep_spd_inverse
     monkeypatch.setattr(tlin, "sweep_spd_inverse",
-                        lambda X: leaves.append(1) or leaf(X))
+                        lambda X, **kw: leaves.append(1) or leaf(X, **kw))
     t = T.solve_box_qp_ip(*problem_from_numpy(*d, device="cpu"),
                           config=T.OptNetConfig(**kw))
     assert t.x.dtype == torch.float32 and bool(t.converged.all())

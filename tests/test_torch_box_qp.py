@@ -104,7 +104,8 @@ def test_f32_recursion_path_agrees_with_jax(monkeypatch):
     leaf_calls = []
     orig = tlin.sweep_spd_inverse
     monkeypatch.setattr(tlin, "sweep_spd_inverse",
-                        lambda X: leaf_calls.append(X.shape) or orig(X))
+                        lambda X, **kw: leaf_calls.append(X.shape)
+                        or orig(X, **kw))
     js, ts = _both(create_qp_data(200, 4, dtype=jnp.float32), np.float32,
                    eps_abs=1e-5, eps_rel=1e-5, symmetrize=False)
     assert leaf_calls and all(s == (4, 128, 128) for s in leaf_calls)

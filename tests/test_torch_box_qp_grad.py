@@ -199,8 +199,8 @@ def test_f32_fixed_point_backward_on_recursion_matches_f64(monkeypatch):
     leaf_calls = []
     orig = tlin.sweep_spd_inverse
     monkeypatch.setattr(tlin, "sweep_spd_inverse",
-                        lambda X: leaf_calls.append(tuple(X.shape))
-                        or orig(X))
+                        lambda X, **kw: leaf_calls.append(tuple(X.shape))
+                        or orig(X, **kw))
     d = _data(200, 4, seed=6)
     res = _residual_set(d, dtype=torch.float32, eps_abs=1e-5, eps_rel=1e-5)
     w = _weights(6, res["x"].shape)

@@ -31,6 +31,7 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         cond or "frozen panels are read" in msg or "not symmetric" in msg,
         msg))
     for name, value in (("N", 200), ("B", 8), ("N_PAD", 256), ("N_HARD", 2),
+                        ("B_BENCH", 4),
                         ("N_X2", 100), ("N_BATCH2", 16), ("MINI2", 4),
                         ("N_INEQ", 100), ("N_CONIC", 40), ("N_COND", 64),
                         ("DEVICE", "cpu")):
@@ -44,7 +45,8 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
         "platform": "gpu", "kind": "rehearsal", "count": 1}}
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
-        "sweep_spd_inverse", "gemv_early_exit", "block_spd_inverse"]
+        "sweep_spd_inverse", "gemv_early_exit", "block_spd_inverse",
+        "mirror_block"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
@@ -77,6 +79,15 @@ def test_chip_smoke_rehearsal_on_cpu(monkeypatch, capsys):
     assert leaf["launches_genqp_polish"] >= 2 * 2
     assert leaf["launches_genqp_bwd"] == 2
     assert kernels[1]["launches_big_batch"] == 1
+    # The mirror at n_pad=256: one block an inverse (phase 4's and each
+    # serving factorization's, one per leaf pair), one in the backward's
+    # solve (a whole inverse at n_pad = 2 x 128), bitwise its plain version.
+    mirror = kernels[3]
+    assert mirror["launches_factorization"] == mirror["blocks"] == 1
+    assert 2 * mirror["launches"] == leaf["launches"]
+    assert mirror["launches_bwd"] == 1
+    assert 2 * mirror["launches_fwd_bwd"] == leaf["launches_fwd_bwd"]
+    assert mirror["max_abs_err"] == 0
     # Phases 22-23 (two gloo ranks, and a one-rank world, in worker
     # processes on the CPU): the leaf on the dp ranks' solves and on every
     # pivot panel of the tp=2 factorizations (two 100-wide panels, one a

@@ -147,7 +147,7 @@ def test_cholesky_solve_runs_no_leaf(monkeypatch):
     leaves = []
     orig = tlin.sweep_spd_inverse
     monkeypatch.setattr(tlin, "sweep_spd_inverse",
-                        lambda X: leaves.append(1) or orig(X))
+                        lambda X, **kw: leaves.append(1) or orig(X, **kw))
     d = problem_from_numpy(*_np(create_qp_data(200, 3, seed=2,
                                                dtype=jnp.float64)),
                            device="cpu", dtype=torch.float32)

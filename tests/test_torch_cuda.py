@@ -20,6 +20,7 @@ from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops.kernels import _build
 from lqp_py_tpu_torch.ops.kernels import admm_step as gk
 from lqp_py_tpu_torch.ops.kernels import block_inverse as bk
+from lqp_py_tpu_torch.ops.kernels import mirror as mk
 from lqp_py_tpu_torch.ops.kernels import spd_inverse as sk
 from lqp_py_tpu_torch.utils.generators import create_qp_data
 
@@ -79,6 +80,80 @@ def test_sweep_kernel_reads_a_leading_block_view_in_place(cuda, off):
     assert sk.LAUNCHES == before + 1
     assert out.is_contiguous()
     assert torch.equal(out, sk.sweep_spd_inverse(view.contiguous()))
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("dest", ["strided-out", "own-input"])
+def test_sweep_kernel_writes_into_a_view(cuda, dest, off):
+    """The leaf writing through a diagonal-block view of another stack
+    (off=1: scalar stores), or over its own input, gives bitwise what it
+    gives into a new stack, and writes nothing outside the view."""
+    block = (slice(None), slice(off, off + 128), slice(off, off + 128))
+    stack = _leaf_stack(5, cuda, n=256)
+    fresh = sk.sweep_spd_inverse(stack[block])
+    big = stack if dest == "own-input" else torch.full_like(stack, -7.0)
+    want = big.clone()
+    want[block] = fresh
+    before = sk.LAUNCHES
+    out = sk.sweep_spd_inverse(stack[block], out=big[block])
+    assert sk.LAUNCHES == before + 1
+    assert out.data_ptr() == big[block].data_ptr()
+    assert torch.equal(big, want)
+
+
+@pytest.mark.parametrize("shape", [(3, 512, 512), (2, 100, 37),
+                                   (1, 256, 128), (65536, 4, 5)])
+def test_mirror_kernel_matches_plain_version(cuda, shape):
+    """The top-right block of a stack mirrored into its bottom-left, as
+    the recursion does (ragged tiles at 100 x 37; 65536 matrices, one
+    more than the grid's z limit): bitwise the plain transposed copy, and
+    nothing outside the destination written."""
+    B, r, c = shape
+    m = r + c + 8
+    big = torch.randn((B, m, m), device=cuda)
+    want = big.clone()
+    mk.mirror_block_ref(want[:, :r, m - c:], want[:, m - c:, :r])
+    before = mk.LAUNCHES
+    out = mk.mirror_block(big[:, :r, m - c:], big[:, m - c:, :r])
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES == before + 1
+    assert out.data_ptr() == big[:, m - c:, :r].data_ptr()
+    assert torch.equal(big, want)
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: (torch.zeros((2, 8, 4), device=d, dtype=torch.float64),
+               torch.zeros((2, 4, 8), device=d, dtype=torch.float64)),
+    lambda d: (torch.zeros((2, 8, 4), device=d), torch.zeros((2, 8, 4),
+                                                              device=d)),
+    lambda d: (torch.zeros((2, 4, 8), device=d).mT, torch.zeros((2, 4, 8),
+                                                                device=d)),
+], ids=["float64", "wrong-shape", "column-strided"])
+def test_mirror_kernel_rejects_what_it_does_not_take(cuda, make):
+    before = mk.LAUNCHES
+    with pytest.raises(ValueError):
+        mk.mirror_block(*make(cuda))
+    assert mk.LAUNCHES == before
+
+
+def test_spd_inverse_fast_assembles_in_one_buffer(cuda, monkeypatch):
+    """(4, 1024, 1024): one call of the recursion, 8 leaf launches and 7
+    mirrors (one per inner node), and the inverse within 1e-5 of float64,
+    relative to its largest entry; the operand is not written."""
+    H = _leaf_stack(4, cuda, n=1024)
+    before = H.clone()
+    calls = []
+    rec = lin._schur_inverse
+    monkeypatch.setattr(lin, "_schur_inverse",
+                        lambda *a, **kw: calls.append(1) or rec(*a, **kw))
+    counts = (sk.LAUNCHES, mk.LAUNCHES)
+    Hi = lin.spd_inverse_fast(H, equilibrate=False)
+    torch.cuda.synchronize()
+    assert (len(calls), sk.LAUNCHES - counts[0],
+            mk.LAUNCHES - counts[1]) == (1, 8, 7)
+    assert torch.equal(H, before)
+    inv = torch.linalg.inv(H.double())
+    assert (Hi.double() - inv).abs().max() <= 1e-5 * inv.abs().max()
 
 
 def test_sweep_kernel_ill_conditioned_no_worse_than_plain(cuda):
@@ -411,7 +486,8 @@ def test_sweep_kernel_on_an_interior_point_operator(cuda):
     """H = Q + diag(d) with d spanning 1e-8..1e8, as the interior point's
     operator near convergence: spd_inverse_fast (equilibrated, two kernel
     leaves at n=256) no further from a float64 inverse than the same
-    recursion with the plain leaf, beyond a factor 2."""
+    recursion with the plain leaf and the plain mirror (no kernel
+    launched), beyond a factor 2."""
     Q = create_qp_data(256, 8, seed=10, device="cpu").Q.to(cuda)
     g = torch.Generator().manual_seed(11)
     d = 10.0 ** (16 * torch.rand((8, 256), generator=g) - 8)
@@ -422,7 +498,10 @@ def test_sweep_kernel_on_an_interior_point_operator(cuda):
     kern = lin.spd_inverse_fast(H)
     assert sk.LAUNCHES == before + 2
     Hs, de = lin._equilibrate(H)
-    plain = lin._schur_inverse(Hs, leaf=sk.sweep_spd_inverse_ref)
+    launched = (sk.LAUNCHES, mk.LAUNCHES)
+    plain = lin._schur_inverse(Hs, leaf=sk.sweep_spd_inverse_ref,
+                               mirror=mk.mirror_block_ref)
+    assert (sk.LAUNCHES, mk.LAUNCHES) == launched
     plain = plain * de[..., :, None] * de[..., None, :]
     err_k = (kern.double() - inv64).abs().max()
     err_p = (plain.double() - inv64).abs().max()

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lqp_py_tpu.ops import linalg as jlin
 from lqp_py_tpu.ops.pallas import spd_inverse as jsw
@@ -108,7 +109,8 @@ def test_spd_inverse_fast_dispatch(n, dtype, equilibrate, rtol, monkeypatch):
     leaf_calls = []
     orig = tlin.sweep_spd_inverse
     monkeypatch.setattr(tlin, "sweep_spd_inverse",
-                        lambda X: leaf_calls.append(X.shape) or orig(X))
+                        lambda X, **kw: leaf_calls.append(X.shape)
+                        or orig(X, **kw))
     H = _wishart(3, 3, n)
     Hi = tlin.spd_inverse_fast(torch.tensor(H, dtype=dtype),
                                equilibrate=equilibrate)
@@ -196,8 +198,8 @@ def test_spd_solve_fast_matches_torch_solve(n, dtype, equilibrate, k,
     leaf_calls = []
     orig = tlin.sweep_spd_inverse
     monkeypatch.setattr(tlin, "sweep_spd_inverse",
-                        lambda X: leaf_calls.append(tuple(X.shape))
-                        or orig(X))
+                        lambda X, **kw: leaf_calls.append(tuple(X.shape))
+                        or orig(X, **kw))
     H = _wishart(8, 2, n)
     R = np.random.default_rng(9).standard_normal((2, n, k))
     X = tlin.spd_solve_fast(torch.tensor(H, dtype=dtype),
@@ -217,11 +219,144 @@ def test_schur_solve_rec_matches_jax_recursion():
     import functools
     H = _wishart(10, 2, 384)
     R = np.random.default_rng(11).standard_normal((2, 384, 2))
-    ours = tlin._schur_solve_rec(torch.from_numpy(H), torch.from_numpy(R),
-                                 leaf=tlin.spd_inverse).numpy()
+    ours = tlin._schur_solve_rec(
+        torch.from_numpy(H), torch.from_numpy(R),
+        leaf=lambda X, out: out.copy_(tlin.spd_inverse(X))).numpy()
     ee = functools.partial(jnp.einsum, precision="highest")
     theirs = np.asarray(jlin._schur_solve_rec(
         jnp.asarray(H), jnp.asarray(R), ee, leaf=jlin.spd_inverse))
     np.testing.assert_allclose(ours, theirs, rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(ours, np.linalg.solve(H, R), rtol=1e-9,
                                atol=1e-11)
+
+
+def _chol_leaf(X, out):
+    return out.copy_(tlin.spd_inverse(X))
+
+
+@pytest.mark.parametrize("form", ["inverse", "solve"])
+@pytest.mark.parametrize("n", [256, 384, 640, 1024])
+def test_recursion_assembled_in_one_buffer(n, form):
+    """The recursion on a diagonal-block view of a larger stack (384 and
+    640 split unevenly: 128 + 256, 256 + 384): into a new buffer, into a
+    strided view of another stack, and over a copy of its own input, all
+    bitwise equal, the caller's operand bitwise unchanged.  float32 with
+    the plain sweep leaf against float64 at the tolerances above; float64
+    with Cholesky leaves against the JAX recursion with the same leaves."""
+    import functools
+    ee = functools.partial(jnp.einsum, precision="highest")
+    R = np.random.default_rng(n).standard_normal((2, n, 3))
+    a = np.random.default_rng(30 + n).standard_normal((2, n, n)) * 0.1
+    H64 = a.transpose(0, 2, 1) @ a + np.eye(n)     # _spd's family
+    for dtype, leaf in ((np.float32, tlin._sweep_leaf),
+                        (np.float64, _chol_leaf)):
+        H = H64.astype(dtype)
+        big = np.zeros((2, n + 128, n + 128), dtype)
+        big[:, 128:, 128:] = H
+        view = torch.from_numpy(big)[:, 128:, 128:]
+        assert not view.is_contiguous()
+        before, own = view.clone(), view.clone()
+        if form == "inverse":
+            ours = tlin._schur_inverse(view, leaf)
+            dst = torch.full((2, n + 64, n + 64), float("nan"),
+                             dtype=view.dtype)[:, 64:, 64:]
+            assert tlin._schur_inverse(view, leaf, out=dst) is dst
+            assert torch.equal(dst, ours)
+            assert torch.equal(tlin._schur_inverse(own, leaf, out=own), ours)
+            ref = np.linalg.inv(H64)
+            jax_rec = functools.partial(jlin._schur_inverse, jnp.asarray(H))
+        else:
+            Rt = torch.from_numpy(R.astype(dtype))
+            ours = tlin._schur_solve_rec(view, Rt, leaf)
+            assert torch.equal(
+                tlin._schur_solve_rec(own, Rt, leaf, work=own), ours)
+            ref = np.linalg.solve(H64, R)
+            jax_rec = functools.partial(jlin._schur_solve_rec,
+                                        jnp.asarray(H), jnp.asarray(R))
+        assert torch.equal(view, before)
+        if dtype == np.float32:
+            np.testing.assert_allclose(ours.numpy(), ref, rtol=5e-4,
+                                       atol=5e-5)
+        else:
+            theirs = np.asarray(jax_rec(ee, leaf=jlin.spd_inverse))
+            np.testing.assert_allclose(ours.numpy(), theirs, rtol=1e-10,
+                                       atol=1e-12)
+            np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-9,
+                                       atol=1e-11)
+
+
+@pytest.mark.parametrize("n", [200, 300, 1000])
+def test_padded_copy_is_read_only_on_and_above_its_diagonal_blocks(n):
+    """``_pad_to_leaf`` leaves the blocks below its 128 diagonal blocks
+    unwritten, and the recursion in place on the copy never reads them:
+    with NaN there, the inverse and the solve are those of the padded
+    matrix, bitwise."""
+    a = np.random.default_rng(n).standard_normal((2, n, n)) * 0.1
+    H = torch.from_numpy((a.transpose(0, 2, 1) @ a + np.eye(n)).astype(
+        np.float32))
+    N = -(-n // 128) * 128
+    full = torch.eye(N).repeat(2, 1, 1)
+    full[:, :n, :n] = H
+    R = F.pad(torch.ones((2, n, 2)), (0, 0, 0, N - n))
+    Hp = tlin._pad_to_leaf(H)
+    band = torch.arange(N) // 128
+    Hp[:, band[:, None] > band[None, :]] = float("nan")
+    own = Hp.clone()
+    assert torch.equal(tlin._schur_solve_rec(own, R, work=own),
+                       tlin._schur_solve_rec(full, R))
+    assert torch.equal(tlin._schur_inverse(Hp, out=Hp),
+                       tlin._schur_inverse(full))
+
+
+@pytest.mark.parametrize("form", ["inverse", "solve"])
+def test_recursion_refuses_an_operand_autograd_records(form, monkeypatch):
+    """The in-place GEMMs record no graph: an operand that requires grad
+    under grad mode raises before any block is written, and under no_grad
+    it is inverted."""
+    H = torch.from_numpy(_spd(40, 2, 256, np.float32)).requires_grad_(True)
+    R = torch.ones((2, 256, 1))
+    call = ((lambda: tlin._schur_inverse(H)) if form == "inverse"
+            else (lambda: tlin._schur_solve_rec(H, R)))
+    nodes = _count_calls(monkeypatch, "_invert_into")
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        call()
+    assert nodes == []
+    with torch.no_grad():
+        assert bool(torch.isfinite(call()).all())
+    assert len(nodes) >= 1
+
+
+def _count_calls(monkeypatch, *names):
+    """Wrap each named function of ``ops/linalg.py`` to append its name to
+    the returned list on every call (the recursion finds them as module
+    globals, so its own calls are counted too)."""
+    calls = []
+    for name in names:
+        orig = getattr(tlin, name)
+        monkeypatch.setattr(tlin, name, lambda *a, _o=orig, _n=name, **kw:
+                            calls.append(_n) or _o(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("layer", ["boxqp", "qp_gen"])
+def test_layer_fwd_bwd_assembles_in_place(layer, monkeypatch):
+    """A float32 forward and backward of each benchmarked layer (n=200,
+    padded to 256) runs the recursion in one buffer, the backward's solve
+    included: the autograd Functions factorize outside any graph."""
+    import lqp_py_tpu_torch as T
+    from lqp_py_tpu_torch.utils.generators import create_qp_data
+    Q, p, A, b, lb, ub = create_qp_data(200, 2, seed=3, device="cpu")
+    Q.requires_grad_(True)
+    p.requires_grad_(True)
+    cfg = dict(eps_abs=1e-5, eps_rel=1e-5, symmetrize=False)
+    calls = _count_calls(monkeypatch, "_schur_inverse", "_schur_solve_rec")
+    if layer == "boxqp":
+        x = T.boxqp(Q, p, A, b, lb, ub, config=T.BoxQPConfig(**cfg))
+    else:
+        eye = torch.eye(200).expand(2, 200, 200)
+        x = T.qp_gen(Q, p, A, b, torch.cat([-eye, eye], dim=1),
+                     torch.cat([-lb, ub], dim=1),
+                     config=T.GenQPConfig(**cfg))
+    gQ, gp = torch.autograd.grad(x.sum(), (Q, p))
+    assert bool(torch.isfinite(gQ).all()) and bool(torch.isfinite(gp).all())
+    assert len(calls) >= 2

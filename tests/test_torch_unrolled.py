@@ -270,7 +270,8 @@ def test_unrolled_f32_factorizes_through_the_leaf(monkeypatch):
     leaves = []
     orig = tlin.sweep_spd_inverse
     monkeypatch.setattr(tlin, "sweep_spd_inverse",
-                        lambda X: leaves.append(X.shape) or orig(X))
+                        lambda X, **kw: leaves.append(X.shape)
+                        or orig(X, **kw))
     d = [torch.tensor(np.asarray(a, np.float32)) for a in
          create_qp_data(200, 2, seed=4, dtype=jnp.float64)]
     d[0].requires_grad_(True)
