@@ -142,7 +142,8 @@ class OptNetConfig:
     factor: str = "auto"
     #: Iterative-refinement steps on each condensed KKT solve.
     refine_steps: int = 0
-    #: Two-round active-set polish after the loop, accepted per element.
+    #: Active-set polish after the loop (two rounds, a third where round 2
+    #: narrowly fails on some element), accepted per element.
     polish: bool = True
 
 

@@ -13,7 +13,10 @@ active sets differ.
 stationarity identity: a negative one means the guess was wrong for that
 coordinate, and the caller then keeps its own iterate.
 ``gen_penalty_polish`` pins rows of ``G x <= h`` and returns the
-accumulated AL estimates.
+accumulated AL estimates.  The interior points' polish (``models/optnet.py``,
+``models/box_ip.py``) runs its rounds through ``polish_rounds`` and holds
+each round's point to ``accepted``, whose equality part is
+``equality_excess``.
 
 Both take an ``ops`` operator (``ops/operator.py``): the one-process solve
 holds Q, A and G whole (``DENSE``), a column-sharded solve passes the rank's
@@ -29,6 +32,7 @@ import torch
 
 from lqp_py_tpu_torch.ops.linalg import _mv
 from lqp_py_tpu_torch.ops.operator import DENSE
+from lqp_py_tpu_torch.utils.profiling import span
 
 
 class PolishResult(NamedTuple):
@@ -50,6 +54,93 @@ def al_lam_threshold(dtype) -> float:
     (``gen_penalty_polish``): the accumulation carries absolute rounding
     noise of about w * eps per pass."""
     return 4.0 * _penalty_weight(dtype) * torch.finfo(dtype).eps
+
+
+#: Round 3 runs where round 2 missed the acceptance test by less than this
+#: factor on both of its thresholds.
+NARROW_MISS = 10.0
+
+
+def acceptance_threshold(tol: float, norm):
+    """The interior points' bound on a polished point's violation:
+    ``tol (1 + norm)``, ``norm`` the largest |h| (or |bound|) per element."""
+    return tol + tol * norm
+
+
+def gen_lam_threshold(thr, dtype):
+    """The sign test's threshold for ``gen_penalty_polish``'s multipliers:
+    ``thr``, but no lower than their accumulation noise."""
+    return torch.clamp(thr, min=al_lam_threshold(dtype))
+
+
+def accepted(viol, viol_ip, thr, lam_min, thr_lam, within: float = 1.0):
+    """Per element, whether a polished point is taken: it is no less
+    feasible than the interior point's iterate (``viol_ip``), or within
+    ``thr``, and its least multiplier is no more negative than ``-thr_lam``.
+    ``within`` scales both thresholds (``NARROW_MISS``: round 3's test)."""
+    return ((viol <= within * torch.maximum(viol_ip, thr))
+            & (lam_min >= -within * thr_lam))
+
+
+def polish_rounds(solve, repair, ok, act, fallback):
+    """The interior points' active-set polish, accepted per element.
+
+    ``solve(act, k)`` polishes the elements ``k`` (an index tensor, or
+    ``slice(None)`` for all) under the whole batch's guess ``act`` and
+    returns a NamedTuple whose fields are batched tensors or None;
+    ``repair(act, result)`` is the next round's guess; ``ok(result, k,
+    within)`` is ``accepted`` for the elements ``k``.  ``fallback``, the
+    interior point's own iterate as the same NamedTuple, is kept where no
+    round passes.
+
+    Round 2 repairs round 1's guess and is preferred where both pass.  Near
+    a degenerate vertex (a bound whose multiplier is ~tol) round 2's repair
+    can leave a row, or a multiplier, just beyond its threshold, so a third
+    round repairs once more on the elements alone that passed neither round
+    and that round 2 missed by less than ``NARROW_MISS`` (one host read).
+    Where it missed by more, as where the float32 penalty system of dense
+    general rows breaks down, another round would not pass.  Returns the
+    chosen result, field by field."""
+    every = slice(None)
+    pol = solve(act, every)
+    act2 = repair(act, pol)
+    pol2 = solve(act2, every)
+    ok2 = ok(pol2, every, 1.0)
+    ok1 = ok(pol, every, 1.0) & ~ok2
+    out = _pick(ok2, pol2, _pick(ok1, pol, fallback))
+    k = torch.nonzero(~(ok1 | ok2) & ok(pol2, every, NARROW_MISS)).flatten()
+    if k.numel():
+        pol3 = solve(repair(act2, pol2), k)
+        ok3 = ok(pol3, k, 1.0)
+        out = type(out)(*(
+            None if o is None
+            else o.index_copy(0, k, torch.where(ok3[..., None], r, o[k]))
+            for o, r in zip(out, pol3)))
+    return out
+
+
+def _pick(ok, a, b):
+    """Field by field, ``a``'s where ``ok`` (per element), else ``b``'s."""
+    return type(b)(*(None if y is None else torch.where(ok[..., None], x, y)
+                     for x, y in zip(a, b)))
+
+
+def equality_excess(A, b, x, ops=DENSE):
+    """Per element, the largest ``|A x - b|`` beyond its rounding:
+    ``max_i |(A x - b)_i| - eps (|A| |x|)_i``.
+
+    Row i of ``A x`` is a sum of n terms, and a point solved in the working
+    precision leaves it wrong by about one ``eps`` per term: in float32 at
+    n=1000 (the sum-to-one row, |x| <= 2) ~1e-4, several times the
+    acceptance threshold ``tol (1 + |h|)``, while x itself is right to a
+    few 1e-6.  Testing the excess keeps a correct polished point from being
+    rejected for its rounding; in float64 the allowance is ~1e-13.  A wrong
+    active-set guess does not move ``A x - b`` (the polish solves the
+    equality rows exactly): it shows in the bound rows and the multipliers,
+    which keep their thresholds."""
+    r = (ops.mv(A, x) - b).abs()
+    return (r - torch.finfo(x.dtype).eps
+            * ops.mv(A.abs(), x.abs())).amax(dim=-1)
 
 
 def _refined_solve(ops, residual, Hinv, A, b, W, Sinv, rhs):
@@ -141,10 +232,11 @@ def gen_penalty_polish(Q, p, A, b, G, h, act,
     wa = torch.where(act, w, zero)                        # (B, m)
     h_act = torch.where(act, h, zero)
 
-    Hinv = ops.inverse(Q + ops.gram(G * wa[..., :, None], G))
-    W = Sinv = None
-    if A is not None:
-        W, Sinv = ops.schur(Hinv, A)
+    with span("lqp.factorize"):
+        Hinv = ops.inverse(Q + ops.gram(G * wa[..., :, None], G))
+        W = Sinv = None
+        if A is not None:
+            W, Sinv = ops.schur(Hinv, A)
 
     def residual(rhs, x):
         return rhs - ops.mv(Q, x) - ops.mtv(G, wa * ops.mv(G, x))

@@ -9,6 +9,10 @@ and every G product is elementwise; per iteration only the n x n inverse
 predictor-corrector steps, relative stopping test and two-round
 active-set polish as ``models/optnet.py``.
 
+The polish's acceptance reads the equality residual beyond its rounding
+(``_polish.equality_excess``), where the JAX package reads it whole, and a
+third round runs on the elements where round 2 narrowly failed.
+
 Requires finite bounds.  The JAX package's ``lax.while_loop`` is a host
 loop here with one device read per iteration (``converged.all()``):
 each iteration already carries a factorization.  Converged elements are
@@ -26,7 +30,10 @@ import torch
 
 from lqp_py_tpu_torch.config import OptNetConfig
 from lqp_py_tpu_torch.models import box_qp_grad as bgrads
-from lqp_py_tpu_torch.models._polish import box_penalty_polish
+from lqp_py_tpu_torch.models._polish import (PolishResult,
+                                             acceptance_threshold, accepted,
+                                             box_penalty_polish,
+                                             equality_excess, polish_rounds)
 from lqp_py_tpu_torch.models.optnet import _d_cap, _inf_norm, _step_length
 from lqp_py_tpu_torch.ops import collective
 from lqp_py_tpu_torch.ops.linalg import _mv
@@ -203,41 +210,45 @@ def _solve_box_ip(ops, Q, p, A, b, lb, ub, config) -> BoxQPSolution:
 
     x_fin, y_fin = st.x, st.y
     if config.polish:
-        # Active-set polish in box form (models/_polish.py), two rounds.
-        def _viol(xv):
+        # Active-set polish in box form (models/_polish.py).
+        def _viol(xv, k):
             # The refinement corrects through Hinv only, so the equality
-            # residual is part of the acceptance test.
-            v = torch.maximum(lb - xv, xv - ub).amax(dim=-1)
+            # residual is part of the acceptance test, read beyond its
+            # rounding (``equality_excess``).  ``k``: the elements xv
+            # belongs to.
+            v = torch.maximum(lb[k] - xv, xv - ub[k]).amax(dim=-1)
             if A is not None:
-                v = torch.maximum(v, (ops.mv(A, xv) - b).abs().amax(dim=-1))
+                v = torch.maximum(v, equality_excess(A[k], b[k], xv, ops))
             return v
 
-        thr = eps_abs + eps_rel * torch.maximum(lb_norm, ub_norm)
-        viol_ip = _viol(st.x)
+        thr = acceptance_threshold(tol, torch.maximum(lb_norm, ub_norm))
+        viol_ip = _viol(st.x, slice(None))
         # Classify against slacks recomputed from x, not the IP's slack
         # variables, which drift from x - lb by the primal residual.
-        act_lo = st.z_lo > (st.x - lb)
-        act_hi = st.z_hi > (ub - st.x)
-        pol = box_penalty_polish(Q, p, A, b, lb, ub, act_lo=act_lo,
-                                 act_hi=act_hi, ops=ops)
-        # Round 2 repairs the guess: release bounds whose multiplier came
-        # back negative, add bounds the round-1 point violates.
+        act = (st.z_lo > (st.x - lb), st.z_hi > (ub - st.x))
+
+        def solve(a, k):
+            return box_penalty_polish(
+                Q[k], p[k], None if A is None else A[k],
+                None if b is None else b[k], lb[k], ub[k], act_lo=a[0][k],
+                act_hi=a[1][k], ops=ops)
+
         thr_c = thr[..., None]
-        act_lo2 = (act_lo & (pol.lam_lo >= -thr_c)) | (lb - pol.x > thr_c)
-        act_hi2 = (act_hi & (pol.lam_hi >= -thr_c)) | (pol.x - ub > thr_c)
-        pol2 = box_penalty_polish(Q, p, A, b, lb, ub, act_lo=act_lo2,
-                                  act_hi=act_hi2, ops=ops)
 
-        def _ok(pr):
-            lam_min = torch.minimum(pr.lam_lo, pr.lam_hi).amin(dim=-1)
-            return ((_viol(pr.x) <= torch.maximum(viol_ip, thr))
-                    & (lam_min >= -thr))
+        def repair(a, pr):
+            # Release bounds whose multiplier came back negative, add
+            # bounds the point violates.
+            return ((a[0] & (pr.lam_lo >= -thr_c)) | (lb - pr.x > thr_c),
+                    (a[1] & (pr.lam_hi >= -thr_c)) | (pr.x - ub > thr_c))
 
-        ok2 = _ok(pol2)[..., None]
-        ok1 = _ok(pol)[..., None] & ~ok2
-        x_fin = torch.where(ok2, pol2.x, torch.where(ok1, pol.x, st.x))
-        if pol.y is not None:
-            y_fin = torch.where(ok2, pol2.y, torch.where(ok1, pol.y, st.y))
+        def ok(pr, k, within):
+            return accepted(_viol(pr.x, k), viol_ip[k], thr[k],
+                            torch.minimum(pr.lam_lo, pr.lam_hi).amin(dim=-1),
+                            thr[k], within)
+
+        fin = polish_rounds(solve, repair, ok, act, PolishResult(
+            x=st.x, y=st.y, lam_lo=st.z_lo, lam_hi=st.z_hi))
+        x_fin, y_fin = fin.x, fin.y
 
     lams = torch.cat([torch.clamp(st.z_lo, min=1e-8),
                       torch.clamp(st.z_hi, min=1e-8)], dim=-1)

@@ -4,10 +4,11 @@
     x* = argmin_x 0.5 x'Qx + p'x   s.t.  Ax = b,  Gx <= h
 
 Mehrotra predictor-corrector steps with 0.999 ratio-test step lengths, a
-per-element relative stopping test, a two-round active-set polish and the
-KKT implicit backward that reuses the forward's factors.  Every fixed
-operator is a materialized inverse (``spd_inverse_fast``: SWEEP leaves in
-float32), so each KKT solve is a handful of batched GEMVs.  Two
+per-element relative stopping test, a two-round active-set polish (a third
+where needed) and the KKT implicit backward that reuses the forward's
+factors.  Every fixed operator is a materialized inverse
+(``spd_inverse_fast``: SWEEP leaves in float32), so each KKT solve is a
+handful of batched GEMVs.  Two
 factorizations, chosen by constraint count (``OptNetConfig.factor``):
 
 - 'schur': precompute Q^-1 and the inequality-Schur blocks; per iteration
@@ -18,6 +19,24 @@ factorizations, chosen by constraint count (``OptNetConfig.factor``):
 The JAX package's ``lax.while_loop`` is a host loop with one device read
 per iteration.  Converged elements are frozen (step length 0), and the
 loop runs as many iterations as the JAX package's.
+
+Spans (``utils/profiling.span``): ``lqp.factorize`` inside each
+factorizing function (``ip_pre_factor``, ``ip_factor_L22``,
+``ip_factor_condensed``, the polish's), so one per factorization wherever
+it is called, the backward's included; ``lqp.loop`` around the iterations,
+``lqp.check`` around each iteration's host read, ``lqp.polish`` around the
+polish.
+
+The polish (``_polish.polish_rounds``) departs from the JAX package's in
+three ways.  Its acceptance reads the equality residual beyond its rounding
+(``_polish.equality_excess``), where the JAX package reads it whole and, in
+float32 at n=1000, rejects correct polishes.  Where round 2 narrowly fails
+on an element, a third round on those elements alone repairs the guess
+once more.  And the layer's backward differentiates the polished point:
+it takes the accepted round's multipliers, 0 on the rows left free, where
+the JAX package's takes the IP's z, whose z/s is of order one on free
+coordinates near a bound at a loose tolerance (the solution's ``lams``
+stay the IP's z, as the JAX package's).
 """
 
 from __future__ import annotations
@@ -29,8 +48,12 @@ import torch
 from torch import nn
 
 from lqp_py_tpu_torch.config import OptNetConfig
-from lqp_py_tpu_torch.models._polish import (al_lam_threshold,
-                                             gen_penalty_polish)
+from lqp_py_tpu_torch.models._polish import (GenPolishResult,
+                                             acceptance_threshold, accepted,
+                                             equality_excess,
+                                             gen_lam_threshold,
+                                             gen_penalty_polish,
+                                             polish_rounds)
 from lqp_py_tpu_torch.models.box_qp_grad import _outer, _sym_outer
 from lqp_py_tpu_torch.models.eqcon import qp_eqcon, solve_qp_eqcon
 from lqp_py_tpu_torch.ops import collective
@@ -38,6 +61,7 @@ from lqp_py_tpu_torch.ops.linalg import _mv, spd_inverse_fast
 from lqp_py_tpu_torch.ops.operator import DENSE
 from lqp_py_tpu_torch.ops.precision import solver_precision
 from lqp_py_tpu_torch.types import QPSolution, as_vector, like_layout
+from lqp_py_tpu_torch.utils.profiling import span
 
 
 def _mtv(M, v):
@@ -70,24 +94,27 @@ class IPFactors(NamedTuple):
 
 def ip_pre_factor(Q, A, G, ops=DENSE) -> IPFactors:
     """The d-independent pieces.  Only ``Qinv`` has n columns (held as
-    ``ops`` holds Q); the rest is whole."""
-    Qinv = ops.inverse(Q)
-    R = ops.mm(G, ops.mmt(Qinv, G))                       # (B, ni, ni)
-    if A is None:
-        return IPFactors(Qinv=Qinv, S11inv=None, T=None, Rt=R)
-    invQ_At = ops.mmt(Qinv, A)                            # (B, n, m)
-    S11inv = spd_inverse_fast(ops.mm(A, invQ_At))
-    GQA = ops.mm(G, invQ_At)                              # (B, ni, m)
-    T = GQA @ S11inv
-    return IPFactors(Qinv=Qinv, S11inv=S11inv, T=T, Rt=R - T @ GQA.mT)
+    ``ops`` holds Q); the rest is whole.  One ``lqp.factorize`` span: the
+    m x m inverse of the equality rows' Schur complement goes with Q's."""
+    with span("lqp.factorize"):
+        Qinv = ops.inverse(Q)
+        R = ops.mm(G, ops.mmt(Qinv, G))                   # (B, ni, ni)
+        if A is None:
+            return IPFactors(Qinv=Qinv, S11inv=None, T=None, Rt=R)
+        invQ_At = ops.mmt(Qinv, A)                        # (B, n, m)
+        S11inv = spd_inverse_fast(ops.mm(A, invQ_At))
+        GQA = ops.mm(G, invQ_At)                          # (B, ni, m)
+        T = GQA @ S11inv
+        return IPFactors(Qinv=Qinv, S11inv=S11inv, T=T, Rt=R - T @ GQA.mT)
 
 
 def ip_factor_L22(f: IPFactors, d, int_reg):
     """The d-dependent refactorization: the inverse of
     ``Rt + diag(1/d) + int_reg I``, applied as a GEMV."""
-    M = f.Rt.clone()
-    M.diagonal(dim1=-2, dim2=-1).add_(1.0 / d).add_(int_reg)
-    return spd_inverse_fast(M)
+    with span("lqp.factorize"):
+        M = f.Rt.clone()
+        M.diagonal(dim1=-2, dim2=-1).add_(1.0 / d).add_(int_reg)
+        return spd_inverse_fast(M)
 
 
 def _schur_solve(f: IPFactors, Minv, H_eq, H_in):
@@ -125,11 +152,12 @@ def ip_factor_condensed(Q, A, G, d, int_reg,
                         ops=DENSE) -> CondensedFactors:
     """Per-iteration factorization of ``H(d) = Q + G^T diag(d) G``; d > 0
     keeps H SPD."""
-    Hinv = ops.inverse(ops.add_diag(Q + ops.gram(G, d[..., :, None] * G),
-                                    int_reg))
-    if A is None:
-        return CondensedFactors(Hinv=Hinv, W=None, Sinv=None)
-    return CondensedFactors(Hinv, *ops.schur(Hinv, A, int_reg))
+    with span("lqp.factorize"):
+        Hinv = ops.inverse(ops.add_diag(
+            Q + ops.gram(G, d[..., :, None] * G), int_reg))
+        if A is None:
+            return CondensedFactors(Hinv=Hinv, W=None, Sinv=None)
+        return CondensedFactors(Hinv, *ops.schur(Hinv, A, int_reg))
 
 
 def ip_solve_condensed(fc: CondensedFactors, d, G, A, rx, rs, rz, ry,
@@ -212,10 +240,19 @@ def solve_qp_optnet(Q, p, A=None, b=None, G=None, h=None,
     return _solve_qp_optnet_full(Q, p, A, b, G, h, config)[0]
 
 
-@solver_precision
 def _solve_qp_optnet_full(Q, p, A, b, G, h, config, ops=DENSE):
     """The solve and, in Schur mode, its ``IPFactors`` (else None).  Q, A
     and G as ``ops`` holds them (``ops/operator.py``)."""
+    return _solve_ip(Q, p, A, b, G, h, config, ops)[:2]
+
+
+@solver_precision
+def _solve_ip(Q, p, A, b, G, h, config, ops=DENSE):
+    """``_solve_qp_optnet_full``'s solve, factors and, third, the
+    multipliers the layer's backward differentiates with: where a polish
+    round was accepted, its AL multipliers, which are 0 on the rows it left
+    free (the solution's ``lams`` keep the IP's z, as the JAX package's
+    do); elsewhere the IP's z.  Both clamped to 1e-8."""
     Q = torch.as_tensor(Q)
     if config.symmetrize:
         Q = ops.symmetrize(Q)
@@ -232,7 +269,7 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config, ops=DENSE):
             primal_residual=torch.zeros((B,), **kw),
             dual_residual=torch.zeros((B,), **kw),
             converged=torch.ones((B,), dtype=torch.bool,
-                                 device=p.device)), None
+                                 device=p.device)), None, None
 
     G = torch.as_tensor(G).to(dtype)
     h = as_vector(h, "h").to(dtype)
@@ -345,54 +382,69 @@ def _solve_qp_optnet_full(Q, p, A, b, G, h, config, ops=DENSE):
             busy=busy)
 
     it = 0
-    while it < config.max_iters:
-        st = body(st, it)
-        it += 1
-        live = (float(st.error) >= tol if config.reduce == "mean"
-                else bool(st.busy))
-        if not live:
-            break
+    with span("lqp.loop"):
+        while it < config.max_iters:
+            st = body(st, it)
+            it += 1
+            with span("lqp.check"):
+                live = (float(st.error) >= tol if config.reduce == "mean"
+                        else bool(st.busy))
+            if not live:
+                break
 
-    x_fin, y_fin = st.x, st.y
+    fin = GenPolishResult(x=st.x, y=st.y, lam=st.z)
     if config.polish:
-        def _viol(xv):
-            # The refinement residual is built from H = Q + G'WG only, so
-            # the equality residual is part of the acceptance test.
-            v = torch.clamp(ops.mv(G, xv) - h, min=0.0).amax(dim=-1)
-            if A is not None:
-                v = torch.maximum(v, (ops.mv(A, xv) - b).abs().amax(dim=-1))
-            return v
-
-        thr_acc = eps_abs + eps_rel * h_norm
-        viol_ip = _viol(st.x)
-        # Classify against slacks recomputed from x (h - Gx), not the IP's
-        # slack variables, which drift by the primal residual.
-        act = st.z > (h - ops.mv(G, st.x))
-        pol = gen_penalty_polish(Q, p, A, b, G, h, act=act, ops=ops)
-        # Round 2 repairs the guess: release rows whose AL multiplier came
-        # back negative (beyond the accumulation's w*eps noise floor), pin
-        # rows the round-1 point violates.
-        thr_lam = torch.clamp(thr_acc, min=al_lam_threshold(dtype))
-        viol_rows = (ops.mv(G, pol.x) - h) > thr_acc[..., None]
-        act2 = (act & (pol.lam >= -thr_lam[..., None])) | viol_rows
-        pol2 = gen_penalty_polish(Q, p, A, b, G, h, act=act2, ops=ops)
-
-        def _ok(pr):
-            return ((_viol(pr.x) <= torch.maximum(viol_ip, thr_acc))
-                    & (pr.lam.amin(dim=-1) >= -thr_lam))
-
-        ok2 = _ok(pol2)[..., None]
-        ok1 = _ok(pol)[..., None] & ~ok2
-        x_fin = torch.where(ok2, pol2.x, torch.where(ok1, pol.x, st.x))
-        if pol.y is not None:
-            y_fin = torch.where(ok2, pol2.y, torch.where(ok1, pol.y, st.y))
+        with span("lqp.polish"):
+            fin = _polish(Q, p, A, b, G, h, st, tol, h_norm, dtype, ops)
 
     sol = QPSolution(
-        x=x_fin, lams=torch.clamp(st.z, min=1e-8),
-        slacks=torch.clamp(h - ops.mv(G, x_fin), min=1e-8), nus=y_fin,
+        x=fin.x, lams=torch.clamp(st.z, min=1e-8),
+        slacks=torch.clamp(h - ops.mv(G, fin.x), min=1e-8), nus=fin.y,
         iterations=it, primal_residual=st.primal, dual_residual=st.dual,
         converged=st.converged)
-    return sol, f
+    return sol, f, torch.clamp(fin.lam, min=1e-8)
+
+
+def _polish(Q, p, A, b, G, h, st: _IPState, tol, h_norm, dtype,
+            ops) -> GenPolishResult:
+    """The active-set polish of the last iterate
+    (``_polish.polish_rounds``): per element the accepted round's x, y and
+    AL multipliers, or the IP's x, y and z where no round passes."""
+    def _viol(xv, k):
+        # The refinement residual is built from H = Q + G'WG only, so the
+        # equality residual is part of the acceptance test; it is read
+        # beyond its rounding (``equality_excess``).  ``k``: the elements
+        # xv belongs to.
+        v = torch.clamp(ops.mv(G[k], xv) - h[k], min=0.0).amax(dim=-1)
+        if A is not None:
+            v = torch.maximum(v, equality_excess(A[k], b[k], xv, ops))
+        return v
+
+    thr_acc = acceptance_threshold(tol, h_norm)
+    # Multipliers are held to the AL accumulation's w*eps noise floor.
+    thr_lam = gen_lam_threshold(thr_acc, dtype)
+    viol_ip = _viol(st.x, slice(None))
+    # Classify against slacks recomputed from x (h - Gx), not the IP's
+    # slack variables, which drift by the primal residual.
+    act = st.z > (h - ops.mv(G, st.x))
+
+    def solve(a, k):
+        return gen_penalty_polish(
+            Q[k], p[k], None if A is None else A[k],
+            None if b is None else b[k], G[k], h[k], act=a[k], ops=ops)
+
+    def repair(a, pr):
+        # Release rows whose AL multiplier came back negative, pin rows
+        # the point violates.
+        return ((a & (pr.lam >= -thr_lam[..., None]))
+                | ((ops.mv(G, pr.x) - h) > thr_acc[..., None]))
+
+    def ok(pr, k, within):
+        return accepted(_viol(pr.x, k), viol_ip[k], thr_acc[k],
+                        pr.lam.amin(dim=-1), thr_lam[k], within)
+
+    return polish_rounds(solve, repair, ok, act,
+                         GenPolishResult(x=st.x, y=st.y, lam=st.z))
 
 
 @solver_precision
@@ -433,13 +485,14 @@ def optnet_grads(dl_dz, x, lams, slacks, nus, Q, A, G,
 
 class _OptNetFunction(torch.autograd.Function):
     """Canonical-layout ((B, n)) interior-point solve with the KKT implicit
-    VJP; Schur mode keeps the forward's ``IPFactors`` for the backward."""
+    VJP at the polished point (``_solve_ip``'s multipliers); Schur mode
+    keeps the forward's ``IPFactors`` for the backward."""
 
     @staticmethod
     def forward(ctx, config, Q, p, A, b, G, h):
-        sol, f = _solve_qp_optnet_full(Q, p, A, b, G, h, config)
+        sol, f, lams = _solve_ip(Q, p, A, b, G, h, config)
         ctx.config, ctx.factors = config, f
-        ctx.save_for_backward(sol.x, sol.lams, sol.slacks, sol.nus, Q, A, G)
+        ctx.save_for_backward(sol.x, lams, sol.slacks, sol.nus, Q, A, G)
         return sol.x
 
     @staticmethod

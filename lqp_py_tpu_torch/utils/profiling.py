@@ -7,12 +7,13 @@
 - ``span(name)``: the solvers' named host spans.  Under an active
   ``torch.profiler`` each is a ``record_function`` range, a
   ``user_annotation`` event in the same trace as the kernels; otherwise a
-  flag read and nothing else.  The solvers enter four: ``lqp.scale``
+  flag read and nothing else.  The solvers enter five: ``lqp.scale``
   (problem scaling and the box's shifted operand), ``lqp.factorize`` (one
   KKT factorization or factored backward solve each; they never nest, so
-  their count is the number of factorizations), ``lqp.loop`` (the ADMM
-  iterations, their checks and any adaptive-rho refactorization) and
-  ``lqp.check`` (a residual check's device-to-host read alone).
+  their count is the number of factorizations), ``lqp.loop`` (the ADMM or
+  interior-point iterations, their checks and any refactorization),
+  ``lqp.check`` (a residual check's device-to-host read alone) and
+  ``lqp.polish`` (the interior point's active-set polish rounds).
 - ``force(tree)``: wait for the devices of the tensors in a tree.
 - ``clock(fn, device)``: one call's wall time, from an idle device to the
   end of its last kernel (``force``); the drivers' timed window.

@@ -15,6 +15,7 @@ import torch
 from lqp_py_tpu_torch import (BoxQPConfig, GenQPConfig, OptNetConfig,
                               boxqp, qp_gen, solve_box_qp, solve_box_qp_ip,
                               solve_qp_gen, solve_qp_optnet)
+from lqp_py_tpu_torch.models import box_ip, optnet
 from lqp_py_tpu_torch.models import box_qp_grad as grads
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops.kernels import _build
@@ -455,10 +456,15 @@ def _general_ineq(n, ni, B, seed, device):
 
 @pytest.mark.parametrize("solver", ["box-ip", "optnet-condensed",
                                     "optnet-schur"])
-def test_interior_point_on_cuda_matches_cpu(cuda, solver):
+def test_interior_point_on_cuda_matches_cpu(cuda, solver, monkeypatch):
     """The interior-point solves at n=256, float32, on the card (SWEEP
     kernel) against the same call on the CPU (plain leaf): each n=256
-    factorization is two leaf launches, Schur mode's ni=128 block one."""
+    factorization is two leaf launches, Schur mode's ni=128 block one; a
+    polish round (two, or three where round 2 narrowly failed on some
+    element) one factorization."""
+    module, name = ((box_ip, "box_penalty_polish") if solver == "box-ip"
+                    else (optnet, "gen_penalty_polish"))
+    real = getattr(module, name)
     out = {}
     for dev in ("cpu", cuda):
         if solver == "optnet-schur":
@@ -469,14 +475,21 @@ def test_interior_point_on_cuda_matches_cpu(cuda, solver):
             args = (data if solver == "box-ip"
                     else (*data[:4], *data.with_G_h()))
         fn = solve_box_qp_ip if solver == "box-ip" else solve_qp_optnet
+        rounds = []
+
+        def counted(*a, **kw):
+            rounds.append(1)
+            return real(*a, **kw)
+
+        monkeypatch.setattr(module, name, counted)
         before = sk.LAUNCHES
         sol = fn(*args, config=IP_CFG)
-        out[str(dev)] = (sol, sk.LAUNCHES - before)
-    (cpu, cpu_leaves), (gpu, leaves) = out["cpu"], out["cuda"]
-    assert cpu_leaves == 0
+        out[str(dev)] = (sol, sk.LAUNCHES - before, len(rounds))
+    (cpu, cpu_leaves, _), (gpu, leaves, r) = out["cpu"], out["cuda"]
+    assert cpu_leaves == 0 and r in (2, 3)
     it = gpu.iterations
-    want = (2 + 1 * (1 + it) + 2 * 2 if solver == "optnet-schur"
-            else 2 * (1 + it + 2))
+    want = (2 + 1 * (1 + it) + 2 * r if solver == "optnet-schur"
+            else 2 * (1 + it + r))
     assert leaves == want
     assert bool(gpu.converged.all()) and bool(cpu.converged.all())
     assert (gpu.x.cpu() - cpu.x).abs().max() <= 1e-4

@@ -151,14 +151,16 @@ def test_optnet_grads_on_jax_residuals_match_jax(jax_solves, case):
 @pytest.mark.parametrize("case", ["box-condensed", "general-schur"])
 def test_qp_optnet_autograd_is_optnet_grads(jax_solves, case, monkeypatch):
     """The layer's gradients are ``optnet_grads`` on its own forward's
-    residuals (Schur mode: its own IPFactors); dQ, dA and dG are built
-    only for inputs that require grad."""
+    residuals (Schur mode: its own IPFactors), with the multipliers of its
+    accepted polish where the JAX package's layer keeps the IP's z
+    (``_solve_ip``); dQ, dA and dG are built only for inputs that require
+    grad."""
     d = jax_solves[case][0]
     w = torch.tensor(np.random.default_rng(8).standard_normal(d[1].shape))
     cfg = T.OptNetConfig(**BASE)
     prob = gen_problem_from_numpy(*d, device="cpu")
-    sol, f = ton._solve_qp_optnet_full(*prob, cfg)
-    want = ton.optnet_grads(w, sol.x, sol.lams, sol.slacks, sol.nus,
+    sol, f, lams = ton._solve_ip(*prob, cfg)
+    want = ton.optnet_grads(w, sol.x, lams, sol.slacks, sol.nus,
                             prob[0], prob[2], prob[4], f, cfg.int_reg)
     ts = [t.clone().requires_grad_(True) for t in prob]
     (w * T.qp_optnet(*ts, config=cfg)).sum().backward()

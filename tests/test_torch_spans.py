@@ -1,9 +1,10 @@
 """The solvers' spans (``utils/profiling.span``) under a CPU
-``torch.profiler``: ``lqp.scale``, ``lqp.factorize``, ``lqp.loop`` and
-``lqp.check`` where the solvers enter them, one ``lqp.factorize`` per
-factorization (counted independently by wrapping the SPD inverse and
-solve), every check inside a loop, the same bits with the profiler on and
-off, and no ``record_function`` entered without a profiler."""
+``torch.profiler``: ``lqp.scale``, ``lqp.factorize``, ``lqp.loop``,
+``lqp.check`` and OptNet's ``lqp.polish`` where the solvers enter them, one
+``lqp.factorize`` per factorization (counted independently by wrapping the
+SPD inverse and solve), every check inside a loop, the same bits with the
+profiler on and off, and no ``record_function`` entered without a
+profiler."""
 
 import json
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 import lqp_py_tpu_torch as T
+from lqp_py_tpu_torch.models import optnet as onet
 from lqp_py_tpu_torch.ops import linalg as lin
 from lqp_py_tpu_torch.ops import operator as op
 from lqp_py_tpu_torch.utils.generators import create_qp_data
@@ -22,6 +24,7 @@ from _torch_threads import one_torch_thread  # noqa: F401
 # once in every loop below.
 BOX = T.BoxQPConfig(eps_abs=1e-6, eps_rel=1e-6, rho=1e-4)
 GEN = T.GenQPConfig(eps_abs=1e-6, eps_rel=1e-6, rho=1e-4)
+IP = T.OptNetConfig(tol=1e-6, max_iters=30, symmetrize=False)
 
 
 def _data(dtype=torch.float64):
@@ -61,15 +64,42 @@ def _qp_gen_fwdbwd():
     return (x.detach(), dQ, dp)
 
 
+def _optnet_fwdbwd(G, h, d):
+    Q, p = d.Q.clone().requires_grad_(True), d.p.clone().requires_grad_(True)
+    x = T.qp_optnet(Q, p, d.A, d.b, G, h, config=IP)
+    dQ, dp = torch.autograd.grad(x.sum() + (x * x).sum(), (Q, p))
+    return (x.detach(), dQ, dp)
+
+
+def _optnet_condensed_fwdbwd():
+    """The box as G = [-I; I]: 'auto' takes the condensed factorization."""
+    d = _data()
+    return _optnet_fwdbwd(*d.with_G_h(), d)
+
+
+def _optnet_schur_fwdbwd():
+    """Eight general rows around a strictly feasible x = 0: 'auto' takes
+    the Schur factorization (ni < n)."""
+    d = _data()
+    g = torch.Generator().manual_seed(3)
+    G = torch.randn((4, 8, 24), generator=g, dtype=torch.float64)
+    h = 0.5 + torch.rand((4, 8), generator=g, dtype=torch.float64)
+    return _optnet_fwdbwd(G, h, d._replace(b=torch.zeros_like(d.b)))
+
+
 # name -> (run, lqp.scale spans, lqp.loop spans, lqp.factorize spans
 # outside every loop: the first factorization of each preparation, and the
-# backward's).
+# backward's; OptNet's two polish rounds, and in Schur mode Q's and the
+# first Schur block's).
 SCENARIOS = {
     "direct": (_direct, 1, 1, 1),
     "prepared_warm": (_prepared_warm, 1, 2, 1),
     "boxqp_fwdbwd": (_boxqp_fwdbwd, 1, 1, 2),
     "qp_gen_fwdbwd": (_qp_gen_fwdbwd, 1, 1, 2),
+    "optnet_condensed_fwdbwd": (_optnet_condensed_fwdbwd, 0, 1, 4),
+    "optnet_schur_fwdbwd": (_optnet_schur_fwdbwd, 0, 1, 5),
 }
+OPTNET = [name for name in SCENARIOS if name.startswith("optnet")]
 
 
 def _profiled(run, tmp_path):
@@ -98,12 +128,17 @@ def _of(spans, name):
 
 class _Count:
     """Calls of the SPD inverse and solve, wherever the solvers reach
-    them: the factorizations counted without the spans."""
+    them: the factorizations counted without the spans.  OptNet's Schur
+    mode inverts its d-dependent block through its own name of
+    ``spd_inverse_fast``, so that block's function is counted; the m x m
+    inverse of the equality rows' Schur complement rides with Q's, as
+    every solver's does."""
 
     def __init__(self, monkeypatch):
         self.n = 0
         for mod, name in ((lin, "spd_inverse_fast"), (op, "spd_inverse_fast"),
-                          (lin, "spd_solve_fast")):
+                          (lin, "spd_solve_fast"),
+                          (onet, "ip_factor_L22")):
             monkeypatch.setattr(mod, name, self._wrap(getattr(mod, name)))
 
     def _wrap(self, fn):
@@ -131,6 +166,16 @@ def test_spans_sit_where_the_work_is(name, tmp_path):
     assert len(outside) == n_outside
     # At least one adaptive-rho refactorization, inside a loop.
     assert len(facts) > n_outside
+
+
+@pytest.mark.parametrize("name", OPTNET)
+def test_optnet_polish_span_holds_its_two_rounds(name, tmp_path):
+    _, spans = _profiled(SCENARIOS[name][0], tmp_path)
+    (polish,) = _of(spans, "lqp.polish")
+    (loop,) = _of(spans, "lqp.loop")
+    assert loop[2] <= polish[1]
+    inner = [s for s in spans if s is not polish and _inside(s, polish)]
+    assert [s[0] for s in inner] == ["lqp.factorize"] * 2
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
